@@ -1,0 +1,127 @@
+"""The port's forward compositor: its plain version against a per-pixel
+serial reference on the CPU, and the CUDA kernel against the plain version
+on the card (``gpu`` marker; skips without one).
+
+This file imports neither JAX nor the JAX package, so it also runs on a
+machine with only PyTorch:
+
+    python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_kernels.py
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from generativedensification_torch.core.camera import Camera
+from generativedensification_torch.core.transforms import normalize_quat
+from generativedensification_torch.splat import kernels
+from generativedensification_torch.splat.binning import bin_gaussians
+from generativedensification_torch.splat.composite import pack_table
+from generativedensification_torch.splat.projection import project_gaussians
+
+torch.set_num_threads(1)
+
+
+def _scene(n, seed, dev, hw=64, scale=4.0):
+    rng = np.random.default_rng(seed)
+    f = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    means = f(rng.uniform(-0.45, 0.45, size=(n, 3)))
+    shs = f(rng.normal(size=(n, 4, 3)) * 0.3 + 0.2)
+    opa = torch.sigmoid(f(rng.normal(size=(n,)) - 1.0))
+    scales = f(scale * np.exp(rng.uniform(np.log(0.002), np.log(0.01), size=(n, 3))))
+    quats = normalize_quat(f(rng.normal(size=(n, 4))))
+    c2w = np.eye(4, dtype=np.float32)
+    c2w[2, 3] = -1.9
+    cam = Camera.from_c2w(f(c2w), 0.8, 0.8, hw, hw, znear=0.1, zfar=10.0)
+    return project_gaussians(means, shs, opa, cam, 1, scales, quats)
+
+
+def _inputs(proj, hw, ts, max_tiles=9):
+    bins = bin_gaussians(proj, hw, hw, tile_size=ts, max_tiles=max_tiles)
+    table = pack_table(proj.xy, proj.conic, proj.color, proj.opacity,
+                       proj.depth, proj.valid)
+    return (table, bins.sorted_ids, bins.tile_starts, bins.tile_counts,
+            bins.tiles_x, bins.tiles_y, ts)
+
+
+def _serial_reference(table, ids, starts, counts, tiles_x, tiles_y, ts):
+    """One pixel at a time, one slot at a time, in float32 scalars."""
+    f = np.float32
+    tab = table.numpy()
+    out = np.zeros((tiles_x * tiles_y, 5, ts * ts), np.float32)
+    for t in range(tiles_x * tiles_y):
+        ox, oy = f((t % tiles_x) * ts), f((t // tiles_x) * ts)
+        seg = ids.numpy()[starts[t]: starts[t] + counts[t]]
+        for p in range(ts * ts):
+            px, py = f(p % ts), f(p // ts)
+            T, acc = f(1.0), np.zeros(4, np.float32)
+            for g in seg:
+                x, y, a, b, c, opa, r, gg, bl, z, valid, _ = tab[g]
+                dx, dy = px - (x - ox), py - (y - oy)
+                power = min(f(-0.5) * (a * dx * dx + c * dy * dy) - b * dx * dy, f(0))
+                alpha = min(f(0.99), (opa if valid > 0 else f(0)) * f(math.exp(power)))
+                if alpha < f(1.0 / 255.0):
+                    continue
+                U = T * (f(1) - alpha)
+                if U < f(1e-4):
+                    break
+                acc += alpha * T * np.asarray([r, gg, bl, z], np.float32)
+                T = U
+            out[t, :4, p] = acc
+            out[t, 4, p] = f(1) - T
+    return out
+
+
+@pytest.mark.parametrize("ts", [16, 32])
+def test_plain_version_matches_serial_reference(ts):
+    proj = _scene(600, seed=0, dev="cpu", hw=32)
+    args = _inputs(proj, 32, ts)
+    with torch.inference_mode():
+        out = kernels.composite_fwd(*args)          # CPU tensor -> plain
+    ref = _serial_reference(*args)
+    assert ref[:, 4].max() > 0.5
+    np.testing.assert_allclose(out.numpy(), ref, atol=2e-5, rtol=0)
+
+
+def test_wrapper_checks_inputs():
+    proj = _scene(50, seed=1, dev="cpu")
+    table, ids, starts, counts, tx, ty, ts = _inputs(proj, 64, 16)
+    with pytest.raises(ValueError, match="table"):
+        kernels.composite_fwd(table.double(), ids, starts, counts, tx, ty, ts)
+    with pytest.raises(ValueError, match="int32"):
+        kernels.composite_fwd(table, ids.long(), starts, counts, tx, ty, ts)
+    with pytest.raises(ValueError, match="one entry per tile"):
+        kernels.composite_fwd(table, ids, starts[:-1], counts, tx, ty, ts)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA compositor has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ts", [16, 32])
+def test_cuda_kernel_matches_plain(cuda_device, ts):
+    """The CUDA compositor against its plain version on the card, 256²."""
+    with torch.inference_mode():
+        proj = _scene(20000, seed=3, dev=cuda_device, hw=256, scale=2.0)
+        args = _inputs(proj, 256, ts)
+        before = kernels.launch_counts["composite_fwd"]
+        out = kernels.composite_fwd(*args)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts["composite_fwd"] == before + 1
+        ref = kernels.composite_fwd_plain(*args)
+    assert float(out[:, 4].max()) > 0.5
+    torch.testing.assert_close(out, ref, atol=2e-4, rtol=0)
+
+
+@pytest.mark.gpu
+def test_cuda_wrapper_refuses_other_tiles(cuda_device):
+    proj = _scene(100, seed=4, dev=cuda_device)
+    args = _inputs(proj, 64, 8)
+    with pytest.raises(ValueError, match="16 or 32"):
+        kernels.composite_fwd(*args)
