@@ -7,23 +7,37 @@ Drives ``generativedensification_torch`` only (no JAX):
 
 1. prints the card (``nvidia-smi`` name and power limit), the torch and
    CUDA versions and both TF32 flags;
-2. builds every CUDA kernel of the coarse path from ``csrc/`` (one ``nvcc``
-   per source, all started together) and prints the build time and
-   ``-Xptxas -v`` registers / shared memory;
-3. kernel phase: holds the forward compositor against its plain PyTorch
+2. builds every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, all
+   started together) and prints the build time and ``-Xptxas -v``
+   registers / shared memory;
+3. kernel #1 phase: holds the forward compositor against its plain PyTorch
    version (atol 2e-4 on color, depth and alpha) on the ``bench.py`` scene
-   (512², 131,072 Gaussians, seed 0) and on the 262,144 Gaussians of the
-   full coarse model, and times both with CUDA events (median of >= 20
-   kernel calls);
-4. slice phase: the full-width coarse ``Network`` (ViT-B/16, 12-layer
-   volume transformer, 64³ Gaussians) from seeded weights on
-   ``make_probe_batch(B=1, V_total=8, 512², n_views=4)``: 2 warm-up
-   forwards, then 5 timed ones, each with the launch counts set to 0 just
-   before and read just after (exactly 8 compositor launches per forward);
-   outputs must be finite and of the documented shapes, and the tiny test
-   configuration must agree between the card and the CPU;
-5. prints one JSON line per kernel record, and as the last line
-   ``{"ok": true, "device": {...}}``.
+   (512², 131,072 Gaussians, seed 0) and on the 262,144 coarse Gaussians of
+   the full-width model (scene B, view 0), and times both with CUDA events
+   (median of >= 20 kernel calls);
+4. kernel #2 phase: on scene B with the batch's view-0 image as ground
+   truth, holds the compositing backward against its plain version in all
+   three modes (each per-slot gradient array scaled by its max |value|,
+   atol 5e-5), checks that two launches give bitwise the same output, and
+   times each mode;
+5. coarse phase: the full-width network (ViT-B/16, 12-layer volume
+   transformer, 64³ Gaussians) from seeded weights on
+   ``make_probe_batch(B=1, V_total=8, 512², n_views=4)``,
+   ``forward(with_fine=False)``: 2 warm-ups, then 5 timed forwards, each
+   with the launch counts set to 0 just before and read just after
+   (exactly 8 forward-compositor launches);
+6. serving phase: the same network, ``forward(with_fine=True)`` (fused
+   selection, densifier, fine render; 331,744 fine Gaussians): 2 warm-ups,
+   5 timed forwards with exactly 16 forward and 4 backward compositor
+   launches each, finite outputs of the documented shapes, peak memory,
+   overflow and a device-time breakdown by stage;
+7. evaluation phase: ``eval.evaluation.main`` on 2 ``synthetic`` scenes at
+   512² with seeded weights;
+8. the tiny configuration with the fine stage on the card and on the CPU
+   from the same seeded weights: Gaussians, selection scores and selected
+   index sets agree, images agree but for isolated knife-edge pixels;
+9. prints the per-phase JSON, the card, the ``{"kernels": [...]}`` line,
+   and as the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a card or outside a checkout.
 """
@@ -40,14 +54,22 @@ import time
 import numpy as np
 
 ATOL = 2e-4
+GRAD_ATOL = 5e-5              # per array, after scaling by its max |value|
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_OPS_PER_S = 67e12         # f32 outside the tensor cores
-# operations per (slot, live pixel) evaluation of the compositor: 2 diffs,
+# operations per (slot, live pixel) evaluation of a compositor: 2 diffs,
 # 7 products/sums of the power form, clamp, exp, opacity product, alpha
-# clamp, the 1/255 compare; and per contributing pair: 1 - alpha, U, the
-# 1e-4 compare, w, and 4 multiply-adds into color and depth
+# clamp, the 1/255 compare
 OPS_PER_EVAL = 17
+# per contributing pair, forward: 1 - alpha, U, the 1e-4 compare, w, and 4
+# multiply-adds into color and depth
 OPS_PER_CONTRIB = 12
+# per contributing pair, backward: the forward's 4, contrib (7), the prefix
+# (2), suffix, max + reciprocal, g_alpha (3), g_power (2), gx and gy (8) =
+# 29, then the mode's row sums: |gx|, |gy| (4); full adds the ten signed
+# rows (21); noabs has only those
+OPS_PER_CONTRIB_BWD = {"full": 54, "noabs": 50, "selonly": 33}
+V_TOTAL, N_VIEWS, HW = 8, 4, 512
 
 
 def fail(msg: str) -> None:
@@ -73,10 +95,17 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def bound(n_bytes: int, ops: int) -> dict:
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return dict(bytes=n_bytes, ops=ops, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes > t_ops else "operations")
+
+
 def compositor_inputs(means, shs, opa, scales, quats, cam, tile_size,
                       max_tiles, max_per_tile):
     """Project + bin one view with the port's own functions; returns the
-    kernel's inputs and the binning counters."""
+    kernels' inputs and the pairs the budgets dropped."""
     import torch
 
     from generativedensification_torch.core.transforms import normalize_quat
@@ -100,7 +129,7 @@ def compositor_inputs(means, shs, opa, scales, quats, cam, tile_size,
 
 
 def kernel_record(name: str, args, overflow: int) -> dict:
-    """Kernel vs plain on one scene: agreement, times and the bound."""
+    """Kernel #1 vs plain on one scene: agreement, times and the bound."""
     import torch
 
     from generativedensification_torch.splat import kernels
@@ -123,17 +152,68 @@ def kernel_record(name: str, args, overflow: int) -> dict:
     live = int(counts.sum())
     n_bytes = table.numel() * 4 + live * 4 + 2 * n_tiles * 4 + n_tiles * 5 * npix * 4
     ops = stats["evals"] * OPS_PER_EVAL + stats["contribs"] * OPS_PER_CONTRIB
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
     rec = dict(scene=name, gaussians=table.shape[0], live_pairs=live,
                overflow=overflow, evals=stats["evals"],
-               contribs=stats["contribs"], bytes=n_bytes, ops=ops, ms=ms,
-               plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-               bound_by="bytes" if t_bytes > t_ops else "operations",
-               max_abs_err=err,
-               alpha_mean=float(out[:, 4].mean()))
+               contribs=stats["contribs"], ms=ms, plain_ms=plain_ms,
+               max_abs_err=err, alpha_mean=float(out[:, 4].mean()),
+               **bound(n_bytes, ops))
     print(f"[kernel] {json.dumps(rec)}")
     return rec
+
+
+def bwd_records(args, gt) -> dict:
+    """Kernel #2 vs plain in every mode on one scene, against the image-MSE
+    cotangent of ``gt`` (the selection pass's), plus seeded alpha and depth
+    cotangents so that every row of ``full`` and ``noabs`` is exercised."""
+    import torch
+
+    from generativedensification_torch.splat import kernels
+    from generativedensification_torch.splat.composite import (
+        _bwd_common,
+        _images,
+        mse_image_cotangent,
+    )
+
+    table, ids, starts, counts, tiles_x, tiles_y, ts = args
+    bg = torch.ones(3, device=table.device)
+    out = kernels.composite_fwd(*args)
+    image, alpha, depth = _images(out, bg, tiles_x, tiles_y, ts)
+    g = torch.Generator(device=table.device).manual_seed(0)
+    noise = lambda x: 1e-7 * torch.randn(x.shape, generator=g, device=x.device)
+    cot = (mse_image_cotangent(image, gt), noise(alpha), noise(depth))
+    gc4, g2, _ = _bwd_common(out, bg, cot, tiles_x, tiles_y, ts)
+    bargs = (table, ids, starts, counts, gc4, g2, tiles_x, tiles_y, ts)
+    n_tiles = tiles_x * tiles_y
+    live = int(counts.sum())
+    recs = {}
+    for mode in kernels.BWD_ROWS:
+        k1 = kernels.composite_bwd(*bargs, mode=mode)
+        k2 = kernels.composite_bwd(*bargs, mode=mode)
+        torch.cuda.synchronize()
+        if not torch.equal(k1, k2):
+            fail(f"composite_bwd {mode}: two launches differ")
+        if not torch.isfinite(k1).all():
+            fail(f"composite_bwd {mode}: non-finite output")
+        stats = {}
+        ref = kernels.composite_bwd_plain(*bargs, mode=mode, stats=stats)
+        scale = ref.abs().amax(dim=0).clamp(min=1e-30)
+        err = float(((k1 - ref) / scale).abs().max())
+        if err > GRAD_ATOL:
+            fail(f"composite_bwd {mode}: scaled max err {err} > {GRAD_ATOL}")
+        ms = cuda_ms(lambda: kernels.composite_bwd(*bargs, mode=mode), reps=21)
+        plain_ms = cuda_ms(lambda: kernels.composite_bwd_plain(*bargs, mode=mode),
+                           reps=2, warmup=0)
+        w = kernels.BWD_ROWS[mode]
+        n_bytes = (table.numel() * 4 + live * 4 + 2 * n_tiles * 4
+                   + gc4.numel() * 4 + g2.numel() * 4 + ids.shape[0] * w * 4)
+        ops = (stats["evals"] * OPS_PER_EVAL
+               + stats["contribs"] * OPS_PER_CONTRIB_BWD[mode])
+        recs[mode] = dict(mode=mode, ms=ms, plain_ms=plain_ms, max_scaled_err=err,
+                          bitwise_repeatable=True, evals=stats["evals"],
+                          contribs=stats["contribs"], live_pairs=live,
+                          **bound(n_bytes, ops))
+        print(f"[kernel] composite_bwd {json.dumps(recs[mode])}")
+    return recs
 
 
 def bench_scene(dev):
@@ -157,11 +237,15 @@ def bench_scene(dev):
                              torch.exp(scale_raw), quats, cam, 32, 4, 4096)
 
 
-def check_outputs(out, B, V_total, H, W, N):
+def check_outputs(out, B, V_total, H, W, N, fine_n=None):
     import torch
 
     shapes = {"image": (B, H, V_total * W, 3), "depth": (B, H, V_total * W, 1),
               "acc_map": (B, H, V_total * W), "overflow": (B, V_total)}
+    if fine_n is not None:
+        shapes.update({"image_fine": (B, H, V_total * W, 3),
+                       "depth_fine": (B, H, V_total * W, 1),
+                       "acc_map_fine": (B, H, V_total * W)})
     for k, shape in shapes.items():
         if tuple(out[k].shape) != shape:
             fail(f"output {k} has shape {tuple(out[k].shape)}, expected {shape}")
@@ -170,22 +254,40 @@ def check_outputs(out, B, V_total, H, W, N):
     centers = out["render_pkg"][0][0]
     if tuple(centers.shape) != (B, N, 3) or not torch.isfinite(centers).all():
         fail("render_pkg centers malformed")
-    img, acc = out["image"], out["acc_map"]
-    if img.min() < 0 or img.max() > 1 or acc.min() < -1e-6 or acc.max() > 1 + 1e-6:
-        fail("image / acc_map outside [0, 1]")
+    for suffix in ("", "_fine") if fine_n is not None else ("",):
+        img, acc = out["image" + suffix], out["acc_map" + suffix]
+        if img.min() < 0 or img.max() > 1 or acc.min() < -1e-6 or acc.max() > 1 + 1e-6:
+            fail(f"image{suffix} / acc_map{suffix} outside [0, 1]")
+    if fine_n is not None:
+        pkg = out["render_pkg"]
+        if len(pkg) != 2:
+            fail(f"render_pkg has {len(pkg)} entries, expected 2")
+        widths = (3, 12, 1, 3, 4)
+        for t, w in zip(pkg[1][:5], widths):
+            if tuple(t.shape) != (B, fine_n, w) or not torch.isfinite(t).all():
+                fail(f"fine render_pkg entry {tuple(t.shape)} malformed, "
+                     f"expected ({B}, {fine_n}, {w})")
+        if tuple(pkg[1][5].shape) != (B, fine_n) or pkg[1][5].dtype != torch.bool:
+            fail("fine validity mask malformed")
 
 
-def forward_breakdown(net, batch) -> dict:
+def forward_breakdown(net, batch, with_fine: bool) -> dict:
     """Device time of one forward by stage, from CUDA events recorded on the
     stream around the ViT encoder, the volume transformer, each render
-    (projection, binning, compositing) and each compositor launch; "other"
-    is the feature lift, the Gaussian head and the gaps between stages."""
+    (projection, binning, compositing), each compositor launch and, with
+    the fine stage, the selection backward, the point features + fine head,
+    the densifier stages and the fine renders.  The first V_total renders
+    are the coarse ones; "coarse_renders" excludes the selection backward
+    they contain.  "other" is the feature lift, the Gaussian heads, the pool
+    and union gathers and the gaps between stages."""
     import torch
 
     from generativedensification_torch.models import network as network_mod
     from generativedensification_torch.splat import composite
 
-    spans = {"img_encoder": [], "vol_decoder": [], "renders": [], "compositor": []}
+    names = ("img_encoder", "vol_decoder", "renders", "compositor",
+             "selection_backward", "point_feats_fine_head", "densifier")
+    spans = {n: [] for n in names}
 
     def event():
         e = torch.cuda.Event(enable_timing=True)
@@ -201,35 +303,47 @@ def forward_breakdown(net, batch) -> dict:
         return run
 
     handles = []
-    for name in ("img_encoder", "vol_decoder"):
-        mod = getattr(net, name)
+    mods = [("img_encoder", net.img_encoder), ("vol_decoder", net.vol_decoder)]
+    mods += [("densifier", st) for st in net.stages]
+    for name, mod in mods:
         handles.append(mod.register_forward_pre_hook(
             lambda m, a, n=name: spans[n].append([event(), None])))
         handles.append(mod.register_forward_hook(
             lambda m, a, o, n=name: spans[n][-1].__setitem__(1, event())))
-    patched = [(network_mod, "rasterize"), (composite, "composite_fwd")]
-    saved = [getattr(m, a) for m, a in patched]
-    for (m, a), fn, name in zip(patched, saved, ("renders", "compositor")):
+    patched = [(network_mod, "rasterize", "renders"),
+               (composite, "composite_fwd", "compositor"),
+               (composite, "composite_backward", "selection_backward")]
+    saved = [getattr(m, a) for m, a, _ in patched]
+    for (m, a, name), fn in zip(patched, saved):
         setattr(m, a, timed(name, fn))
+    net._point_feats = timed("point_feats_fine_head", net._point_feats)
+    net.decoder.fine = timed("point_feats_fine_head", net.decoder.fine)
     try:
         start = event()
-        net(batch)
+        net(batch, with_fine=with_fine)
         end = event()
     finally:
-        for (m, a), fn in zip(patched, saved):
+        for (m, a, _), fn in zip(patched, saved):
             setattr(m, a, fn)
+        del net._point_feats, net.decoder.fine
         for h in handles:
             h.remove()
     torch.cuda.synchronize()
     ms = {k: sum(s.elapsed_time(e) for s, e in v) for k, v in spans.items()}
+    renders = [s.elapsed_time(e) for s, e in spans["renders"]]
+    ms["coarse_renders"] = sum(renders[:V_TOTAL]) - ms["selection_backward"]
+    ms["fine_renders"] = sum(renders[V_TOTAL:])
     ms["total"] = start.elapsed_time(end)
-    ms["other"] = ms["total"] - ms["img_encoder"] - ms["vol_decoder"] - ms["renders"]
-    ms["render_data_plane"] = ms["renders"] - ms["compositor"]
+    ms["other"] = ms["total"] - sum(
+        ms[k] for k in ("img_encoder", "vol_decoder", "coarse_renders",
+                        "selection_backward", "point_feats_fine_head",
+                        "densifier", "fine_renders"))
+    ms["render_data_plane"] = ms["renders"] - ms["compositor"] - ms["selection_backward"]
     ms["compositor_launches"] = len(spans["compositor"])
     return ms
 
 
-def device_busy(net, batch) -> dict:
+def device_busy(net, batch, with_fine: bool) -> dict:
     """``torch.profiler`` over one forward: the summed device time of every
     CUDA kernel against the forward's wall time, and the top kernels."""
     import torch
@@ -239,7 +353,7 @@ def device_busy(net, batch) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        net(batch)
+        net(batch, with_fine=with_fine)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels_ = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
@@ -249,39 +363,109 @@ def device_busy(net, batch) -> dict:
             "top": [(e.key[:60], e.count, e.self_device_time_total / 1e3) for e in top]}
 
 
+def timed_forwards(net, batch, with_fine: bool, expect: dict, n: int = 5):
+    """2 warm-ups, then ``n`` forwards with the launch counts set to 0 just
+    before each and read just after; fails unless every run launched
+    exactly ``expect``."""
+    import torch
+
+    from generativedensification_torch.splat import kernels
+
+    for _ in range(2):
+        net(batch, with_fine=with_fine)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(n):
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = net(batch, with_fine=with_fine)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        launches = dict(kernels.launch_counts)
+        if launches != expect:
+            fail(f"with_fine={with_fine}: expected launches {expect} per "
+                 f"forward, got {launches}")
+    return out, times, launches, torch.cuda.max_memory_allocated()
+
+
+def fine_config(**over):
+    """The serving configuration: the infer defaults (``mask_pool`` 262144)
+    in f32, built without PyYAML."""
+    from generativedensification_torch.config import default_infer_config
+
+    cfg = default_infer_config()
+    cfg.set_dotted("tpu.compute_dtype", "float32")
+    for k, v in over.items():
+        cfg.set_dotted(k, v)
+    return cfg
+
+
 def tiny_card_vs_cpu():
-    """The tiny test configuration on the card and on the CPU from the same
-    seeded weights: the Gaussians agree to 1e-4, and the renders agree to
-    2e-4 except at isolated knife-edge pixels (alpha at 1/255 or T at 1e-4
-    land on the other side under cross-device rounding): at most 0.1% of
-    pixels may differ by more."""
+    """The tiny test configuration with the fine stage on the card and on
+    the CPU from the same seeded weights: the coarse Gaussians agree to
+    1e-4, the selection scores to 5e-5 of their max, the opacity-pool and
+    selected index sets are identical (the seed is fixed so that the
+    selection boundary's margin is >= 100x the score tolerance), and the
+    renders agree to 2e-4 except at isolated knife-edge pixels (alpha at
+    1/255 or T at 1e-4 land on the other side under cross-device
+    rounding): at most 0.1% of pixels may differ by more."""
     import torch
 
     from generativedensification_torch.data.synthetic import make_probe_batch
-    from generativedensification_torch.models.network import Network, NetworkConfig
+    from generativedensification_torch.models import network as network_mod
 
-    cfg = NetworkConfig(
+    cfg = network_mod.NetworkConfig(
         n_views=2, encoder_backbone="tiny_test", n_groups=(4,),
         n_offset_groups=8, num_layers=2, num_heads=4, view_embed_dim=8,
         embedding_dim=32, vol_feat_reso=4, vol_embedding_reso=8,
-        vol_embedding_out_dim=16, tile_size=16, max_tiles=4, max_per_tile=256)
-    outs = {}
+        vol_embedding_out_dim=16, k_num=96, dec_depths=(1, 1),
+        dec_channels=(32, 48), dec_num_head=(4, 6), non_leaf_ratio=(0.75,),
+        mask_pool=192, tile_size=16, max_tiles=8, max_per_tile=256)
+    outs, splits = {}, {}
+    real = network_mod.topk_split
     for dev in ("cuda", "cpu"):
-        net = Network(cfg, device=dev, seed=1)
-        with torch.inference_mode():
-            outs[dev] = net(make_probe_batch(1, 4, 64, 64, 2, seed=1, device=dev))
+        net = network_mod.Network(cfg, device=dev, seed=35)
+        calls = []
+        network_mod.topk_split = lambda s, m, k: calls.append(
+            (s, m, k, real(s, m, k))) or calls[-1][3]
+        try:
+            outs[dev] = net(make_probe_batch(1, 4, 64, 64, 2, seed=1, device=dev),
+                            with_fine=True)
+        finally:
+            network_mod.topk_split = real
+        splits[dev] = calls
     worst = 0.0
     for a, b in zip(outs["cuda"]["render_pkg"][0], outs["cpu"]["render_pkg"][0]):
         worst = max(worst, float((a.cpu() - b).abs().max()))
     if worst > 1e-4:
-        fail(f"tiny config: Gaussians differ card vs CPU by {worst}")
-    for k in ("image", "depth", "acc_map"):
-        d = (outs["cuda"][k].cpu() - outs["cpu"][k]).abs()
+        fail(f"tiny config: coarse Gaussians differ card vs CPU by {worst}")
+    (_, _, _, pool_c), (score_c, valid_c, k, sel_c) = splits["cuda"]
+    (_, _, _, pool_h), (score_h, _, _, sel_h) = splits["cpu"]
+    tol = GRAD_ATOL * float(score_h.max())
+    score_err = float((score_c.cpu() - score_h).abs().max())
+    s = np.sort(np.where(valid_c[0].cpu().numpy(), score_h[0].numpy(), -np.inf))[::-1]
+    margin = float(s[k - 1] - s[k])
+    print(f"[tiny] selection scores max|card-cpu| {score_err:.3g} (tolerance "
+          f"{tol:.3g}); k-th boundary margin {margin:.3g} = {margin / tol:.0f}x "
+          "the tolerance")
+    if score_err > tol:
+        fail(f"tiny config: selection scores differ by {score_err} > {tol}")
+    if margin < 100 * tol:
+        fail(f"tiny config: boundary margin {margin} < 100 x {tol}")
+    for name, a, b in (("pool", pool_c, pool_h), ("selection", sel_c, sel_h)):
+        if not all(torch.equal(x.cpu(), y) for x, y in zip(a, b)):
+            fail(f"tiny config: {name} index sets differ card vs CPU")
+    for key in ("image", "depth", "acc_map", "image_fine", "depth_fine",
+                "acc_map_fine"):
+        d = (outs["cuda"][key].cpu() - outs["cpu"][key]).abs()
         frac = float((d > ATOL).float().mean())
-        print(f"[tiny] {k}: max|card-cpu| {float(d.max()):.3g}, "
+        print(f"[tiny] {key}: max|card-cpu| {float(d.max()):.3g}, "
               f"share > {ATOL}: {frac:.2e}")
         if frac > 1e-3:
-            fail(f"tiny config: {k} differs card vs CPU on {frac:.2%} of pixels")
+            fail(f"tiny config: {key} differs card vs CPU on {frac:.2%} of pixels")
+    return dict(score_err=score_err, score_tol=tol, margin=margin)
 
 
 def main() -> int:
@@ -296,6 +480,7 @@ def main() -> int:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 2
     from generativedensification_torch.data.synthetic import make_probe_batch
+    from generativedensification_torch.eval import evaluation
     from generativedensification_torch.splat import kernels
     from generativedensification_torch.utils.device import resolve_device
 
@@ -315,33 +500,40 @@ def main() -> int:
           f"{torch.backends.cuda.matmul.allow_tf32} cudnn "
           f"{torch.backends.cudnn.allow_tf32}")
 
-    # -- 2. build every kernel of the path (one source today)
+    # -- 2. build every kernel (one nvcc per source, started together)
     t0 = time.perf_counter()
-    lib = kernels.build()
-    print(f"[build] composite_fwd.cu in {time.perf_counter() - t0:.1f}s -> {lib.path.name}")
-    for line in lib.build_log.splitlines():
-        if "registers" in line or "Compiling entry" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+    libs = kernels.build()
+    print(f"[build] {len(libs)} sources in {time.perf_counter() - t0:.1f}s")
+    for lib in libs.values():
+        print(f"[build] {lib.src.name} -> {lib.path.name}")
+        for line in lib.build_log.splitlines():
+            if "registers" in line or "Compiling entry" in line or "spill" in line:
+                print(f"[build] {line.strip()}")
 
-    # -- 3. kernel phase, scene 1: bench.py's scene
+    # -- 3. kernel #1, scene A: bench.py's scene
     with torch.inference_mode():
         args, overflow = bench_scene(dev)
         bench_rec = kernel_record("bench_512_131k", args, overflow)
 
-    # -- 4. slice phase: the full-width coarse network
-    cfg = NetworkConfig()
+    # the full-width serving network from the infer configuration
+    cfg = NetworkConfig.from_config(fine_config())
     t0 = time.perf_counter()
     net = Network(cfg, seed=0)
-    batch = make_probe_batch(1, 8, 512, 512, n_views=cfg.n_views, seed=0)
+    net.eval()
+    batch = make_probe_batch(1, V_TOTAL, HW, HW, n_views=N_VIEWS, seed=0)
+    n_coarse = (2 * cfg.vol_embedding_reso) ** 3
+    n_fine = (sum(lv["leaf"] for lv in cfg.level_sizes())
+              + min(cfg.mask_pool, n_coarse) - cfg.k_num)
     print(f"[slice] network built in {time.perf_counter() - t0:.1f}s, "
-          f"{sum(p.numel() for p in net.parameters())} parameters")
-    H = W = 512
-    with torch.inference_mode():
-        out = net(batch)                                       # warm-up 1
-        torch.cuda.synchronize()
-        check_outputs(out, 1, 8, H, W, (2 * cfg.vol_embedding_reso) ** 3)
+          f"{sum(p.numel() for p in net.parameters())} parameters; "
+          f"{n_coarse} coarse -> {n_fine} fine Gaussians")
 
-        # kernel phase, scene 2: the model's 262,144 Gaussians in view 0
+    with torch.inference_mode():
+        out = net(batch, with_fine=True)                      # warm-up
+        torch.cuda.synchronize()
+        check_outputs(out, 1, V_TOTAL, HW, HW, n_coarse, n_fine)
+
+        # -- 3/4. scene B: the model's 262,144 coarse Gaussians in view 0
         centers, shs_c, opacity_c, scaling_c, rotation_c = out["render_pkg"][0]
         cam = net._cameras_all(batch)[0][0]
         args, overflow = compositor_inputs(
@@ -349,63 +541,99 @@ def main() -> int:
             torch.exp(scaling_c[0]), rotation_c[0], cam, cfg.tile_size,
             cfg.max_tiles, cfg.max_per_tile)
         model_rec = kernel_record("model_512_262k_view0", args, overflow)
+        bwd_recs = bwd_records(args, batch["tar_rgb"][0, 0])
 
-        net(batch)                                             # warm-up 2
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        times, launches = [], None
-        for _ in range(5):
-            kernels.reset_launch_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = net(batch)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-            launches = dict(kernels.launch_counts)
-            if launches["composite_fwd"] != 8:
-                fail(f"expected 8 compositor launches per forward, got {launches}")
-        check_outputs(out, 1, 8, H, W, (2 * cfg.vol_embedding_reso) ** 3)
-        peak = torch.cuda.max_memory_allocated()
-        fwd_ms = statistics.median(times)
+        # -- 5. the coarse path
+        out_c, times_c, launches_c, peak_c = timed_forwards(
+            net, batch, False, {"composite_fwd": V_TOTAL, "composite_bwd": 0})
+        check_outputs(out_c, 1, V_TOTAL, HW, HW, n_coarse)
+        split_c = forward_breakdown(net, batch, False)
 
-        # where the forward's time goes (one more forward each)
-        split = forward_breakdown(net, batch)
-        busy = device_busy(net, batch)
-    kernel_total = split["compositor"]
-    overflow_total = int(out["overflow"].sum())
-    print(f"[slice] forward ms median {fwd_ms:.2f} (runs {[round(t, 2) for t in times]}); "
-          f"compositor {kernel_total:.3f} ms over {split['compositor_launches']} "
-          f"launches = {kernel_total / fwd_ms:.1%} of the forward; overflow "
-          f"{overflow_total}; peak allocated {peak / 2**30:.2f} GiB")
-    print(f"[breakdown] device ms by stage: {json.dumps(split)}")
-    print(f"[profiler] wall {busy['wall_ms']:.2f} ms, kernels busy "
+        # -- 6. the serving path
+        out_f, times_f, launches_f, peak_f = timed_forwards(
+            net, batch, True,
+            {"composite_fwd": 2 * V_TOTAL, "composite_bwd": N_VIEWS})
+        check_outputs(out_f, 1, V_TOTAL, HW, HW, n_coarse, n_fine)
+        split_f = forward_breakdown(net, batch, True)
+        busy = device_busy(net, batch, True)
+    coarse_ms, fine_ms = statistics.median(times_c), statistics.median(times_f)
+    ov_coarse = int(out_c["overflow"].sum())
+    ov_serving = int(out_f["overflow"].sum())
+    fine_valid = int(out_f["render_pkg"][1][5].sum())
+    print(f"[coarse] forward ms median {coarse_ms:.2f} (runs "
+          f"{[round(t, 2) for t in times_c]}); overflow {ov_coarse}; peak "
+          f"allocated {peak_c / 2**30:.2f} GiB")
+    print(f"[serving] forward ms median {fine_ms:.2f} (runs "
+          f"{[round(t, 2) for t in times_f]}); launches {launches_f}; overflow "
+          f"coarse {ov_coarse} + fine {ov_serving - ov_coarse}; fine Gaussians "
+          f"{n_fine} ({fine_valid} valid); peak allocated {peak_f / 2**30:.2f} GiB")
+    print(f"[breakdown] coarse forward, device ms by stage: {json.dumps(split_c)}")
+    print(f"[breakdown] serving forward, device ms by stage: {json.dumps(split_f)}")
+    print(f"[profiler] serving wall {busy['wall_ms']:.2f} ms, kernels busy "
           f"{busy['busy_ms']:.2f} ms ({busy['busy_ms'] / busy['wall_ms']:.1%}); "
           f"top: {json.dumps(busy['top'])}")
+    del net, out, out_c, out_f
+    torch.cuda.empty_cache()
 
+    # -- 7. the evaluation entry point on 2 synthetic scenes
+    t0 = time.perf_counter()
+    result = evaluation.main(fine_config(**{
+        "infer.dataset.dataset_name": "synthetic", "infer.dataset.n_scenes": 2,
+        "infer.save_images": 0}))
+    eval_s = time.perf_counter() - t0
+    means = result["mean"]
+    if len(result["scenes"]) != 2 or not all(np.isfinite(v) for v in means.values()):
+        fail(f"evaluation result malformed: {result}")
+    print(f"[eval] 2 synthetic scenes at {HW}² in {eval_s:.1f}s: {json.dumps(means)}")
+
+    # -- 8. the tiny configuration, card vs CPU
     with torch.inference_mode():
-        tiny_card_vs_cpu()
+        tiny = tiny_card_vs_cpu()
 
-    rec = {
+    try:
+        import yaml  # noqa: F401
+        has_yaml = True
+    except ImportError:
+        has_yaml = False
+    recs = [{
         "name": "composite_fwd",
         "route": "cuda",
         "source": "generativedensification_torch/csrc/composite_fwd.cu",
         "replaces": "generativedensification_tpu/splat/pallas_kernels.py:412",
-        "launches": launches["composite_fwd"],
+        "launches": launches_f["composite_fwd"],
         "max_abs_err": model_rec["max_abs_err"],
         "ms": model_rec["ms"],
         "plain_ms": model_rec["plain_ms"],
         "bound_ms": model_rec["bound_ms"],
         "bound_by": model_rec["bound_by"],
         "library_ms": None,
-    }
-    print(json.dumps({"slice": {"forward_ms": fwd_ms, "forward_runs_ms": times,
-                                "compositor_ms_per_forward": kernel_total,
-                                "breakdown_ms": split, "busy_ms": busy["busy_ms"],
-                                "busy_wall_ms": busy["wall_ms"],
-                                "overflow": overflow_total, "peak_bytes": peak},
-                      "scenes": [bench_rec, model_rec]}))
+    }, {
+        "name": "composite_bwd",
+        "route": "cuda",
+        "source": "generativedensification_torch/csrc/composite_bwd.cu",
+        "replaces": "generativedensification_tpu/splat/pallas_kernels.py:738",
+        "launches": launches_f["composite_bwd"],
+        "max_abs_err": bwd_recs["selonly"]["max_scaled_err"],
+        "ms": bwd_recs["selonly"]["ms"],
+        "plain_ms": bwd_recs["selonly"]["plain_ms"],
+        "bound_ms": bwd_recs["selonly"]["bound_ms"],
+        "bound_by": bwd_recs["selonly"]["bound_by"],
+        "library_ms": None,
+    }]
+    print(json.dumps({
+        "coarse": {"forward_ms": coarse_ms, "forward_runs_ms": times_c,
+                   "launches": launches_c, "breakdown_ms": split_c,
+                   "overflow": ov_coarse, "peak_bytes": peak_c},
+        "serving": {"forward_ms": fine_ms, "forward_runs_ms": times_f,
+                    "launches": launches_f, "breakdown_ms": split_f,
+                    "busy_ms": busy["busy_ms"], "busy_wall_ms": busy["wall_ms"],
+                    "overflow": ov_serving, "fine_gaussians": n_fine,
+                    "fine_valid": fine_valid, "peak_bytes": peak_f},
+        "eval": {"seconds": eval_s, "mean": means},
+        "tiny": tiny, "pyyaml": has_yaml,
+        "scenes": [bench_rec, model_rec], "composite_bwd": bwd_recs}))
     print(card)
-    print(json.dumps({"kernels": [rec]}))
+    print(json.dumps({"kernels": recs}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,14 +1,22 @@
-"""The Generative Densification network, PyTorch: the coarse path.
+"""The Generative Densification network, PyTorch: the serving forward.
 
 Port of ``generativedensification_tpu/models/network.py``
-``Network.__call__(batch, with_fine=False)``: DINO ViT tokens, Plücker-ray
-modulation, a feature volume lifted from the token maps, the group-attention
-volume transformer, the coarse Gaussian head on the (2R)³ grid, and every
-view rendered through the 3DGS rasterizer (one compositor launch per view).
+``Network.__call__(batch, with_fine=...)`` with ``deterministic=True``:
+
+  * coarse: DINO ViT tokens, Plücker-ray modulation, a feature volume
+    lifted from the token maps, the group-attention volume transformer,
+    the coarse Gaussian head on the (2R)³ grid, every view rendered through
+    the 3DGS rasterizer (one forward compositor launch per view);
+  * fine (``with_fine=True``): the source views' coarse renders also give
+    the AbsGS selection gradients (fused selection, one ``selonly`` backward
+    compositor launch per source view), the static opacity pool, per-view
+    point features and the fine head, top-k selection, the densification
+    decoder stages, the union of the decoder leaves with the unselected
+    pool remainder, and every view rendered again from that union.
 
 Not ported yet, each raising ``NotImplementedError`` with the ROADMAP item
-that brings it: the fine stage (``with_fine=True``: selection, the
-densifier and the fine render — ROADMAP slice 2), the 2DGS renderer
+that brings it: ``share_selection=False`` (the isolated selection closure
+needs autograd through the rasterizer — ROADMAP slice 3), the 2DGS renderer
 (ROADMAP queue 1, 2DGS) and the bf16 compute policy (ROADMAP slice 3).
 """
 
@@ -24,6 +32,25 @@ from torch import nn
 from ..core.camera import Camera
 from ..core.rays import rays_to_plucker
 from ..core.sh import rsh_cart
+from ..points.modules import (
+    Block,
+    GaussianModule,
+    MaskModule,
+    MaskResModule,
+    NeighborConvCPE,
+    PDNorm,
+    UpscaleModule,
+    global_pooling,
+    split_attributes,
+)
+from ..points.ops import topk_split
+from ..points.structure import (
+    PointSet,
+    compute_neighbor_idx,
+    gather_points,
+    gather_rows,
+    serialize_pointset,
+)
 from ..splat.rasterizer import rasterize
 from ..utils.device import resolve_device
 from .backbone import (
@@ -34,16 +61,16 @@ from .backbone import (
     build_dense_grid,
     project_points,
 )
-from .init import init_module_, normal_
+from .init import init_module_, lecun_normal_, normal_
 from .vit import DinoEncoder
 
 
 @dataclasses.dataclass(frozen=True)
 class NetworkConfig:
-    """Static hyperparameters of the coarse path (the JAX ``NetworkConfig``
-    fields this slice reads; the fine stage's arrive with ROADMAP slice 2,
-    and the TPU data-plane knobs — backend, vmap/remat of renders, the XLA
-    chunk — have no meaning here)."""
+    """Static hyperparameters (the JAX ``NetworkConfig`` fields the serving
+    forward reads; the TPU data-plane knobs — backend, vmap/remat of
+    renders, the XLA chunk — have no meaning here, and the train-time ones,
+    drop-path and order shuffling, arrive with ROADMAP slice 3)."""
 
     n_views: int = 4
     encoder_backbone: str = "vit_base_patch16_224.dino"
@@ -58,6 +85,31 @@ class NetworkConfig:
     vol_feat_reso: int = 16
     vol_embedding_reso: int = 32
     vol_embedding_out_dim: int = 80
+    # point decoder
+    k_num: int = 12000
+    order: tuple = ("z", "z-trans", "hilbert", "hilbert-trans")
+    stride: tuple = (2,)
+    dec_depths: tuple = (2, 2)
+    dec_channels: tuple = (160, 256)
+    dec_num_head: tuple = (20, 32)
+    dec_patch_size: tuple = (48, 48)
+    mlp_ratio: float = 4.0
+    qkv_bias: bool = True
+    qk_scale: float | None = None
+    pre_norm: bool = True
+    enable_ada_lnnorm: bool = True
+    upscale_factor: tuple = (2, 4)
+    n_frequencies: int = 15
+    enable_absolute_pe: bool = False
+    use_mask: bool = True
+    temperature: float = 1.0
+    non_leaf_ratio: tuple = (0.8,)
+    mask_sampling_type: str = "topk"
+    enable_residual_attribute: bool = False
+    pdnorm_ln: bool = False
+    pdnorm_conditions: tuple = ("ScanNet", "S3DIS", "Structured3D")
+    mask_pool: int = 49152        # static stand-in for the opacity mask
+    share_selection: bool = True  # fused selection (False: slice 3)
     # rasterizer static budgets
     tile_size: int = 32
     max_tiles: int = 4
@@ -87,6 +139,31 @@ class NetworkConfig:
             vol_feat_reso=m.vol_feat_reso,
             vol_embedding_reso=m.vol_embedding_reso,
             vol_embedding_out_dim=m.vol_embedding_out_dim,
+            k_num=m.k_num,
+            order=tuple(m.order),
+            stride=tuple(m.stride),
+            dec_depths=tuple(m.dec_depths),
+            dec_channels=tuple(m.dec_channels),
+            dec_num_head=tuple(m.dec_num_head),
+            dec_patch_size=tuple(m.dec_patch_size),
+            mlp_ratio=m.mlp_ratio,
+            qkv_bias=m.qkv_bias,
+            qk_scale=m.qk_scale,
+            pre_norm=m.pre_norm,
+            enable_ada_lnnorm=m.enable_ada_lnnorm,
+            upscale_factor=tuple(m.upscale_factor),
+            n_frequencies=m.n_frequencies,
+            enable_absolute_pe=m.enable_absolute_pe,
+            use_mask=m.use_mask,
+            temperature=m.temperature,
+            non_leaf_ratio=tuple(m.non_leaf_ratio),
+            mask_sampling_type=m.mask_sampling_type,
+            enable_residual_attribute=m.enable_residual_attribute,
+            pdnorm_ln=get(m, "pdnorm_ln", cls.pdnorm_ln),
+            pdnorm_conditions=tuple(
+                get(m, "pdnorm_conditions", cls.pdnorm_conditions) or ()),
+            mask_pool=get(m, "mask_pool", cls.mask_pool),
+            share_selection=get(tpu, "share_selection", cls.share_selection),
             tile_size=get(tpu, "tile_size", cls.tile_size),
             max_tiles=get(tpu, "max_tiles", cls.max_tiles),
             max_per_tile=get(tpu, "max_per_tile", cls.max_per_tile),
@@ -112,9 +189,106 @@ class NetworkConfig:
     def scaling_shift(self) -> float:
         return math.log(0.5 * self.voxel_size / 3.0)
 
+    @property
+    def fine_scaling_shift(self) -> float:
+        return math.log(0.5 * self.voxel_size / (8 * 3.0))
+
+    @property
+    def pdnorm_n(self) -> int:
+        return len(self.pdnorm_conditions) if self.pdnorm_ln else 0
+
+    def level_sizes(self) -> list[dict]:
+        """Static per-level point counts of the densification decoder."""
+        sizes = []
+        n = self.k_num
+        n_levels = len(self.dec_channels)
+        for s in range(n_levels):
+            up = n * self.upscale_factor[s]
+            ratio = self.non_leaf_ratio[s] if s < n_levels - 1 else 1.0
+            k = math.ceil(up * ratio) if ratio < 1.0 else up
+            sizes.append(dict(level=s, in_pts=n, up_pts=up, non_leaf=k,
+                              leaf=(up - k) if ratio < 1.0 else up))
+            n = k
+        return sizes
+
+
+class DensifierStage(nn.Module):
+    """One decoder level: [global pooling] -> serialize -> blocks ->
+    upscale -> head / mask, returning (non_leaf, leaf)."""
+
+    def __init__(self, cfg: NetworkConfig, stage: int):
+        super().__init__()
+        self.cfg, self.stage = cfg, stage
+        s = stage
+        self.last = s == len(cfg.dec_channels) - 1
+        out_ch = cfg.dec_channels[s] if self.last else cfg.dec_channels[s + 1]
+        ratio = 1.0 if (self.last or not cfg.use_mask) else cfg.non_leaf_ratio[s]
+        C = cfg.dec_channels[s]
+        self.blocks = nn.ModuleList(
+            Block(C, cfg.dec_num_head[s], cfg.dec_patch_size[s], cfg.mlp_ratio,
+                  cfg.qkv_bias, cfg.qk_scale, cfg.pre_norm,
+                  order_index=i % len(cfg.order), pdnorm_n=cfg.pdnorm_n)
+            for i in range(cfg.dec_depths[s])
+        )
+        self.up = UpscaleModule(
+            C, out_ch, cfg.upscale_factor[s], cfg.n_frequencies,
+            cfg.enable_absolute_pe, carry_attribute=cfg.enable_residual_attribute,
+            pdnorm_n=cfg.pdnorm_n)
+        self.head = GaussianModule(out_ch, cfg.sh_degree)
+        gate = MaskResModule if cfg.enable_residual_attribute else MaskModule
+        self.mask = gate(out_ch, cfg.temperature, ratio, cfg.mask_sampling_type)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        init_module_(self, gen)
+        for m in self.modules():
+            if isinstance(m, NeighborConvCPE):
+                lecun_normal_(m.weight, 27 * m.weight.shape[1], gen)
+                nn.init.zeros_(m.bias)
+            elif isinstance(m, PDNorm):
+                nn.init.ones_(m.weight)
+                nn.init.zeros_(m.bias)
+
+    def forward(self, ps: PointSet):
+        cfg, s = self.cfg, self.stage
+        if s == 0 and cfg.enable_ada_lnnorm:
+            ps = global_pooling(ps)
+        ps = serialize_pointset(ps, cfg.order)
+        ps = compute_neighbor_idx(ps)
+        for block in self.blocks:
+            ps = block(ps)
+        ps = self.up(ps)
+
+        if cfg.enable_residual_attribute:
+            # head first, then mask
+            attr = self.head(ps.feat)
+            if ps.attribute is not None and s > 0:
+                attr = attr + ps.attribute
+            ps = ps.replace(attribute=attr)
+            ps, split_idx, non_leaf_mask = self.mask(ps)
+            if split_idx is None and non_leaf_mask is not None:
+                non_leaf = ps.replace(mask=non_leaf_mask)
+                leaf = ps.replace(mask=ps.mask & ~non_leaf_mask)
+            elif split_idx is None:
+                non_leaf, leaf = ps, ps
+            else:
+                top_idx, rest_idx = split_idx
+                non_leaf = gather_points(
+                    ps, top_idx, new_mask=torch.gather(non_leaf_mask, 1, top_idx))
+                leaf = gather_points(
+                    ps, rest_idx,
+                    new_mask=torch.gather(~non_leaf_mask & ps.mask, 1, rest_idx))
+        else:
+            non_leaf, leaf = self.mask(ps)
+            leaf = leaf.replace(attribute=self.head(leaf.feat))
+        if not self.last:
+            # the next level serializes at a finer grid
+            non_leaf = non_leaf.replace(grid_size=non_leaf.grid_size / cfg.stride[s])
+        return non_leaf, leaf
+
 
 class Network(nn.Module):
-    """Coarse reconstruction network (``forward(batch, with_fine=False)``).
+    """Coarse + generative-densification network (``forward(batch,
+    with_fine=...)``).
 
     ``device=None`` runs on the card (and raises without one); the CPU
     takes only an explicit ``device="cpu"``.  Weights are drawn from a
@@ -153,6 +327,8 @@ class Network(nn.Module):
         self.decoder = GaussianDecoder(
             in_dim=cfg.vol_embedding_out_dim, sh_dim=cfg.sh_dim, K=cfg.K
         )
+        self.stages = nn.ModuleList(
+            DensifierStage(cfg, s) for s in range(len(cfg.dec_channels)))
         self.register_buffer(
             "volume_grid", build_dense_grid(cfg.vol_feat_reso, cfg.scene_size),
             persistent=False)
@@ -170,24 +346,30 @@ class Network(nn.Module):
             normal_(self.view_embed, self.cfg.view_embed_dim ** -0.5, gen)
         self.vol_decoder.reset_parameters(gen)
         self.decoder.reset_parameters(gen)
+        for stage in self.stages:
+            stage.reset_parameters(gen)
 
     def load_flax_params(self, params) -> None:
         """Load a JAX ``Network`` parameter tree (nested dicts of arrays,
         with or without the top-level ``"params"`` key) through
-        ``utils.convert.state_dict_from_flax``.  Entries of the fine stage
-        that the port does not hold yet (the densifier stages) are
-        ignored.  The decoder's fine head may be absent (a JAX tree
-        initialised with ``with_fine=False`` has none) and then keeps its
-        seeded values; every other parameter must be filled."""
+        ``utils.convert.state_dict_from_flax``.  A tree initialised with
+        ``with_fine=True`` fills every parameter; one initialised with
+        ``with_fine=False`` has no fine head and no densifier stages, which
+        then keep their seeded values.  Every other parameter must be
+        filled, and the tree may hold nothing the port lacks."""
         from ..utils.convert import state_dict_from_flax
 
         sd = state_dict_from_flax(params.get("params", params))
         own = self.state_dict()
+        fine = ("decoder.fine_", "stages.")
+        has_fine = any(k.startswith(fine) for k in sd)
         missing = sorted(k for k in set(own) - set(sd)
-                         if not k.startswith("decoder.fine_"))
+                         if has_fine or not k.startswith(fine))
         if missing:
             raise KeyError(f"flax tree lacks parameters: {missing}")
-        sd = {k: v for k, v in sd.items() if k in own}
+        extra = sorted(set(sd) - set(own))
+        if extra:
+            raise KeyError(f"flax tree holds parameters the port lacks: {extra}")
         for k, v in sd.items():
             if tuple(v.shape) != tuple(own[k].shape):
                 raise ValueError(f"shape mismatch at {k}: flax {tuple(v.shape)} "
@@ -208,33 +390,53 @@ class Network(nn.Module):
         ]
 
     def _render_views(self, cams, bgs, centers, shs, opacity_raw, scaling_raw,
-                      rotation_raw, valid) -> dict:
+                      rotation_raw, valid, sel_gt=None) -> dict:
         """Render one sample's views (``cams`` with (V,) leading dims) ->
-        per-view outputs stacked over views."""
+        per-view outputs stacked over views.
+
+        ``sel_gt`` (V_s, H, W, 3): fused AbsGS selection — the first V_s
+        views (the source views) also give ``sel_abs`` (V_s, N, 2) against
+        their ground truth, from the same forward (no second render)."""
         cfg = self.cfg
         opacity = torch.sigmoid(opacity_raw.reshape(-1))
         opacity = torch.where(valid, opacity, torch.zeros_like(opacity))
         scales = torch.exp(scaling_raw)
         max_pairs = (int(centers.shape[0] * cfg.pair_budget)
                      if cfg.pair_budget > 0 else None)
+        n_sel = 0 if sel_gt is None else sel_gt.shape[0]
         outs = [
             rasterize(centers, shs, opacity, scales, rotation_raw, cams[j],
                       bgs[j], cfg.sh_degree, tile_size=cfg.tile_size,
                       max_tiles=cfg.max_tiles, max_per_tile=cfg.max_per_tile,
-                      max_pairs=max_pairs, enum_tiles=cfg.enum_tiles or None)
+                      max_pairs=max_pairs, enum_tiles=cfg.enum_tiles or None,
+                      sel_gt=sel_gt[j] if j < n_sel else None)
             for j in range(bgs.shape[0])
         ]
-        return {k: torch.stack([getattr(o, k) for o in outs])
-                for k in ("image", "alpha", "depth", "overflow")}
+        res = {k: torch.stack([getattr(o, k) for o in outs])
+               for k in ("image", "alpha", "depth", "overflow")}
+        if n_sel:
+            res["sel_abs"] = torch.stack([o.sel_abs for o in outs[:n_sel]])
+        return res
+
+    def _render_all(self, batch, cams_all, gs, valid, sel_gt=None) -> dict:
+        """Every sample's views -> outputs stacked as (B, V_total, ...)."""
+        centers, shs, opacity, scaling, rotation = gs
+        per_b = [
+            self._render_views(cams_all[b], batch["bg_color"][b], centers[b],
+                               shs[b], opacity[b], scaling[b], rotation[b],
+                               valid[b], None if sel_gt is None else sel_gt[b])
+            for b in range(len(cams_all))
+        ]
+        return {k: torch.stack([r[k] for r in per_b]) for k in per_b[0]}
 
     # -------------------------------------------------------------- forward
 
     def forward(self, batch, with_fine: bool = False):
-        if with_fine:
-            raise NotImplementedError(
-                "with_fine=True: gradient-guided selection, the densifier and "
-                "the fine render arrive with ROADMAP slice 2")
         cfg = self.cfg
+        if with_fine and not cfg.share_selection:
+            raise NotImplementedError(
+                "share_selection=False: the isolated selection closure needs "
+                "autograd through the rasterizer, ROADMAP slice 3 (train step)")
         B, V_total, H, W, _ = batch["tar_rgb"].shape
         V = cfg.n_views
 
@@ -273,23 +475,145 @@ class Network(nn.Module):
             -1, cfg.K, 3).reshape(1, -1, 3)
         centers = base_centers + offset * half_cell            # (B, N, 3)
         N = centers.shape[1]
-        all_valid = torch.ones((N,), dtype=torch.bool, device=centers.device)
+        all_valid = torch.ones((B, N), dtype=torch.bool, device=centers.device)
 
+        # coarse renders, all V_total views; with the fine stage the source
+        # views' renders also give the AbsGS selection gradients (fused
+        # selection: one selonly backward per source view, no re-render)
         cams_all = self._cameras_all(batch)
-        coarse = [
-            self._render_views(cams_all[b], batch["bg_color"][b], centers[b],
-                               shs_c[b], opacity_c[b], scaling_c[b],
-                               rotation_c[b], all_valid)
-            for b in range(B)
-        ]
-        stack = lambda name: torch.stack([c[name] for c in coarse])
-        return {
-            "image": _cat_views(stack("image")),
-            "depth": _cat_views(stack("depth"))[..., None],
-            "acc_map": _cat_views(stack("alpha")),
-            "overflow": stack("overflow"),
-            "render_pkg": [(centers, shs_c, opacity_c, scaling_c, rotation_c)],
+        coarse = self._render_all(
+            batch, cams_all, (centers, shs_c, opacity_c, scaling_c, rotation_c),
+            all_valid, batch["tar_rgb"][:, :V] if with_fine else None)
+        outputs = {
+            "image": _cat_views(coarse["image"]),
+            "depth": _cat_views(coarse["depth"])[..., None],
+            "acc_map": _cat_views(coarse["alpha"]),
+            "overflow": coarse["overflow"],
         }
+        render_pkg = [(centers, shs_c, opacity_c, scaling_c, rotation_c)]
+        if not with_fine:
+            outputs["render_pkg"] = render_pkg
+            return outputs
+
+        # ================= fine stage =================
+        opacity_act = torch.sigmoid(opacity_c[..., 0])
+        opacity_ok = opacity_act > 0.005                          # (B, N)
+        # per-view abs grads sum across views; each view's cotangent is the
+        # per-view MSE's, while the reference differentiates one mean over
+        # the V-view concat: divide by V so the scores match it
+        sel_score = torch.linalg.vector_norm(coarse["sel_abs"].sum(1), dim=-1) / V
+
+        pool_idx = static_opacity_pool(opacity_act, cfg.mask_pool)
+        M = pool_idx.shape[1]
+        take2 = lambda a: gather_rows(a, pool_idx)
+        take1 = lambda a: torch.gather(a, 1, pool_idx)
+        pool_valid = take1(opacity_ok)
+        pool_centers = take2(centers)
+        pool_score = torch.where(pool_valid, take1(sel_score),
+                                 torch.full_like(pool_centers[..., 0], -1.0))
+
+        # per-view point features + fine head
+        point_feats = torch.stack([
+            self._point_feats(batch["tar_w2c"][b, :V], batch["tar_ixt"][b, :V],
+                              batch["tar_rgb"][b, :V], pool_centers[b],
+                              coarse["image"][b, :V], coarse["alpha"][b, :V],
+                              coarse["depth"][b, :V])
+            for b in range(B)
+        ])                                            # (B, M, V, 8)
+        pool_vol_feat = take2(volume_feat)            # (B, M, 80)
+        fine_feat, sh_res = self.decoder.fine(pool_vol_feat, point_feats)
+        pool_shs = take2(shs_c.reshape(B, N, -1)).reshape(B, M, -1, 3)
+        fine_shs = sh_res.reshape(B, M, -1, 3) + pool_shs
+        features160 = torch.cat([fine_feat, pool_vol_feat], dim=-1)
+
+        # split the pool into selected (to the densifier) and remainder
+        sel_idx, rest_idx, sel_ok, rest_ok = topk_split(pool_score, pool_valid,
+                                                        cfg.k_num)
+        tsel2 = lambda a: gather_rows(a, sel_idx)
+        trest2 = lambda a: gather_rows(a, rest_idx)
+        sel_centers = tsel2(pool_centers)
+        sel_feats = tsel2(features160)
+        if cfg.enable_residual_attribute:
+            ps = PointSet(coord=sel_centers * 2.0, feat=sel_feats, mask=sel_ok,
+                          grid_size=cfg.voxel_size)
+        else:
+            ps = PointSet(coord=sel_centers, feat=sel_feats, mask=sel_ok,
+                          grid_size=0.5 * cfg.voxel_size)
+
+        # densification decoder levels
+        leaves = []
+        for stage in self.stages:
+            ps, leaf = stage(ps)
+            leaves.append(leaf)
+
+        # union of the decoder leaves
+        xyz_u, sh_u, op_u, sc_u, rot_u, ok_u = [], [], [], [], [], []
+        for leaf in leaves:
+            sh, op, sc, rot = split_attributes(leaf.attribute, cfg.sh_degree)
+            xyz_u.append(leaf.coord / 2.0 if cfg.enable_residual_attribute
+                         else leaf.coord)
+            sh_u.append(sh)
+            op_u.append(op + cfg.opacity_shift)
+            sc_u.append(sc + cfg.fine_scaling_shift)
+            rot_u.append(rot)
+            ok_u.append(leaf.mask)
+
+        # the unselected pool remainder keeps coarse attributes + fine SH
+        xyz_u.append(trest2(pool_centers))
+        sh_u.append(trest2(fine_shs.reshape(B, M, -1)))
+        op_u.append(trest2(take2(opacity_c)))
+        sc_u.append(trest2(take2(scaling_c)))
+        rot_u.append(trest2(take2(rotation_c)))
+        ok_u.append(rest_ok)
+
+        fine_centers = torch.cat(xyz_u, dim=1)
+        fine_sh = torch.cat([s.reshape(B, s.shape[1], -1) for s in sh_u], dim=1)
+        fine_op = torch.cat(op_u, dim=1)
+        fine_sc = torch.cat(sc_u, dim=1)
+        fine_rot = torch.cat(rot_u, dim=1)
+        fine_ok = torch.cat(ok_u, dim=1)
+        fine = self._render_all(
+            batch, cams_all,
+            (fine_centers, fine_sh.reshape(B, fine_sh.shape[1], -1, 3), fine_op,
+             fine_sc, fine_rot), fine_ok)
+
+        outputs.update({
+            "image_fine": _cat_views(fine["image"]),
+            "depth_fine": _cat_views(fine["depth"])[..., None],
+            "acc_map_fine": _cat_views(fine["alpha"]),
+        })
+        # the fine renders (the largest point set, the likeliest to hit a
+        # static budget) feed the overflow diagnostic too
+        outputs["overflow"] = outputs["overflow"] + fine["overflow"]
+        render_pkg.append((fine_centers, fine_sh, fine_op, fine_sc, fine_rot, fine_ok))
+        outputs["render_pkg"] = render_pkg
+        return outputs
+
+    def _point_feats(self, w2cs, ixts, src, points, imgs, accs, depths):
+        """8-channel per-view point features of one sample: [src RGB (3),
+        render RGB (3), acc (1), |render_depth - point_z| (1)] -> (M, V, 8)."""
+        H, W = imgs.shape[1:3]
+        xy, z = project_points(points, w2cs, ixts)     # (V, M, 2), (V, M, 1)
+        img_wh = torch.tensor([W, H], dtype=torch.float32, device=xy.device)
+        xy_norm = (xy + 0.5) / img_wh * 2.0 - 1.0
+        stacked = torch.cat([src, imgs, accs[..., None], depths[..., None]], dim=-1)
+        sampled = bilinear_sample(stacked, xy_norm)    # (V, M, 8)
+        z_diff = (sampled[..., 7:8] - z).abs()
+        return torch.cat([sampled[..., :7], z_diff], dim=-1).permute(1, 0, 2)
+
+
+def static_opacity_pool(opacity_act: torch.Tensor, mask_pool: int) -> torch.Tensor:
+    """(B, M) indices of the top ``min(mask_pool, N)`` points by activated
+    opacity (the static stand-in for the reference's dynamic opacity mask;
+    the union re-applies the 0.005 validity per pooled point).
+    ``mask_pool >= N`` is the identity — the evaluation config sets pool =
+    n_voxels for exact inference."""
+    B, N = opacity_act.shape
+    M = min(mask_pool, N)
+    if M == N:
+        return torch.arange(N, device=opacity_act.device).expand(B, N)
+    return topk_split(opacity_act.detach(),
+                      torch.ones_like(opacity_act, dtype=torch.bool), M)[0]
 
 
 def _cat_views(x: torch.Tensor) -> torch.Tensor:

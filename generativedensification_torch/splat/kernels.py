@@ -1,24 +1,29 @@
-"""The 3DGS forward compositor: CUDA kernel wrapper, launch count and the
-plain PyTorch version.
+"""The 3DGS compositing kernels: CUDA kernel wrappers, launch counts and the
+plain PyTorch versions.
 
 Replaces ``generativedensification_tpu/splat/pallas_kernels.py``'s
-``pallas_composite_fwd``.  The kernel (``csrc/composite_fwd.cu``) is built
-with ``nvcc`` for ``sm_90a`` into a plain-C shared library at first use and
-loaded with ``ctypes``; nothing is compiled or imported for it when this
-module is imported.
+``pallas_composite_fwd`` (``csrc/composite_fwd.cu``) and
+``pallas_composite_bwd`` (``csrc/composite_bwd.cu``).  Each source is built
+with ``nvcc`` for ``sm_90a`` into a plain-C shared library at first use (all
+sources compiled at once, one ``nvcc`` each) and loaded with ``ctypes``;
+nothing is compiled or imported for them when this module is imported.
 
-``composite_fwd`` is the one entry: tensors on the card launch the kernel
-(or raise), tensors on the CPU take ``composite_fwd_plain``.  Nothing else
-chooses.
+``composite_fwd`` and ``composite_bwd`` are the entries: tensors on the card
+launch the kernel (or raise), tensors on the CPU take the plain version.
+Nothing else chooses.
 
-Inputs (shared by both versions):
+Inputs shared by both kernels:
   table       (N, 12) f32 per-gaussian rows
               [x, y, a, b, c, opacity, r, g, b, depth, valid, 0]
   sorted_ids  (P,) i32 gaussian of each depth-sorted slot
   tile_starts (T,) i32 first slot of each tile's segment
   tile_counts (T,) i32 slots per tile, already clamped to the per-tile cap
               (start + count <= P and every id < N, as binning gives them)
-Output: (T, 5, ts*ts) f32 rows [r, g, b, depth, alpha = 1 - T_final].
+Forward output: (T, 5, ts*ts) f32 rows [r, g, b, depth, alpha = 1 - T_final].
+Backward inputs: gc4 (T, 4, ts*ts) f32 rows [gC_r, gC_g, gC_b, gD] (the
+tiled image and depth cotangents) and g2 (T, ts*ts) f32, the per-pixel
+total G = gC . C + gD . D plus the dL/dT_final term.  Backward output:
+(P, BWD_ROWS[mode]) f32, one row per slot (see ``composite_bwd``).
 """
 
 from __future__ import annotations
@@ -37,9 +42,15 @@ ALPHA_MIN = 1.0 / 255.0
 T_EPS = 1e-4
 TABLE_W = 12
 OUT_ROWS = 5
-CHUNK = 32    # slots per gathered block of the plain version
+CHUNK = 32    # slots per gathered block of the plain versions
+# per-slot rows of each backward mode (the order of ``_xla_bwd``'s columns):
+#   full     dx, dy, d conic (3), d opacity, d color (3), d depth, |dx|, |dy|
+#   noabs    the first ten
+#   selonly  |dx|, |dy|  (the AbsGS selection pass)
+BWD_ROWS = {"full": 12, "noabs": 10, "selonly": 2}
+_BWD_MODE_ID = {"full": 0, "noabs": 1, "selonly": 2}
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "composite_fwd.cu"
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -48,7 +59,7 @@ NVCC_FLAGS = (
 
 # launches of each kernel of this module; a wrapper adds one where it
 # launches, and nowhere else
-launch_counts = {"composite_fwd": 0}
+launch_counts = {"composite_fwd": 0, "composite_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -57,16 +68,25 @@ def reset_launch_counts() -> None:
 
 
 class _Library:
-    """The built shared library and what its build reported."""
+    """One kernel source, its built shared library and what its build
+    reported."""
 
-    def __init__(self):
+    def __init__(self, name: str, argtypes: list):
+        self.name = name
+        self.src = _CSRC / f"{name}.cu"
+        self.symbol = f"gd_{name}"
+        self.argtypes = argtypes
         self.lib = None
         self.path = None
         self.build_seconds = 0.0
         self.build_log = ""
 
 
-_library = _Library()
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_libraries = {
+    "composite_fwd": _Library("composite_fwd", [_P] * 5 + [_I] * 3 + [_P]),
+    "composite_bwd": _Library("composite_bwd", [_P] * 7 + [_I] * 4 + [_P]),
+}
 
 
 def _nvcc() -> str:
@@ -77,35 +97,48 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def build() -> _Library:
-    """Compile ``csrc/composite_fwd.cu`` (once per source and flag set) into
-    ``build/`` and load it.  Returns the library record with the build time
+def build() -> dict[str, _Library]:
+    """Compile every source of ``csrc/`` (once per source and flag set) into
+    ``build/``, all ``nvcc`` processes started together, and load them.
+    Returns the library records by kernel name, each with its build time
     and nvcc's ``-Xptxas -v`` report (registers, shared memory, spills)."""
-    if _library.lib is not None:
-        return _library
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    todo = [lib for lib in _libraries.values() if lib.lib is None]
+    if not todo:
+        return _libraries
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = _BUILD_DIR / f"composite_fwd_{tag}.so"
     t0 = time.perf_counter()
-    if not so.exists():
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        res = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-            capture_output=True, text=True,
-        )
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed:\n{res.stdout}\n{res.stderr}")
-        os.replace(tmp, so)
-        _library.build_log = res.stdout + res.stderr
-    lib = ctypes.CDLL(str(so))
-    fn = lib.gd_composite_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    _library.build_seconds = time.perf_counter() - t0
-    _library.path = so
-    _library.lib = lib
-    return _library
+    procs = []
+    try:
+        for lib in todo:
+            src = lib.src.read_bytes()
+            tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+            lib.path = _BUILD_DIR / f"{lib.name}_{tag}.so"
+            if not lib.path.exists():
+                tmp = lib.path.with_suffix(f".{os.getpid()}.tmp")
+                proc = subprocess.Popen(
+                    [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(lib.src)],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                )
+                procs.append((lib, proc, tmp))
+        for lib, proc, tmp in procs:
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {lib.src.name}:\n{out}\n{err}")
+            os.replace(tmp, lib.path)
+            lib.build_log = out + err
+    finally:
+        for _, proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for lib in todo:
+        cdll = ctypes.CDLL(str(lib.path))
+        fn = getattr(cdll, lib.symbol)
+        fn.argtypes = lib.argtypes
+        fn.restype = ctypes.c_int
+        lib.build_seconds = time.perf_counter() - t0
+        lib.lib = cdll
+    return _libraries
 
 
 def _check_inputs(table, sorted_ids, tile_starts, tile_counts, num_tiles):
@@ -121,6 +154,19 @@ def _check_inputs(table, sorted_ids, tile_starts, tile_counts, num_tiles):
         raise ValueError("tile_starts / tile_counts must have one entry per tile")
 
 
+def _check_cuda(tile_size, table, *rest):
+    """What the CUDA kernels take beyond ``_check_inputs``."""
+    if tile_size not in (16, 32):
+        raise ValueError(f"the CUDA compositor takes 16 or 32 px tiles, "
+                         f"got {tile_size}")
+    if any(t.device != table.device for t in rest):
+        raise ValueError("all compositor inputs must be on one device")
+    if not all(t.is_contiguous() for t in (table, *rest)):
+        raise ValueError("compositor inputs must be contiguous")
+    if table.data_ptr() % 16:
+        raise ValueError("table must be 16-byte aligned")
+
+
 def composite_fwd(table, sorted_ids, tile_starts, tile_counts,
                   tiles_x: int, tiles_y: int, tile_size: int) -> torch.Tensor:
     """Composite every tile; (T, 5, ts²) rows [r, g, b, depth, alpha]."""
@@ -132,18 +178,8 @@ def composite_fwd(table, sorted_ids, tile_starts, tile_counts,
                                    tiles_x, tiles_y, tile_size)
     if dev.type != "cuda":
         raise ValueError(f"composite_fwd: unsupported device {dev}")
-    if tile_size not in (16, 32):
-        raise ValueError(f"the CUDA compositor takes 16 or 32 px tiles, "
-                         f"got {tile_size}")
-    for t in (sorted_ids, tile_starts, tile_counts):
-        if t.device != dev:
-            raise ValueError("all compositor inputs must be on one device")
-    if not all(t.is_contiguous() for t in (table, sorted_ids, tile_starts,
-                                           tile_counts)):
-        raise ValueError("compositor inputs must be contiguous")
-    if table.data_ptr() % 16:
-        raise ValueError("table must be 16-byte aligned")
-    lib = build().lib
+    _check_cuda(tile_size, table, sorted_ids, tile_starts, tile_counts)
+    lib = build()["composite_fwd"].lib
     out = torch.empty((num_tiles, OUT_ROWS, tile_size * tile_size),
                       dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -228,3 +264,150 @@ def composite_fwd_plain(table, sorted_ids, tile_starts, tile_counts,
         stats["evals"] = int(n_eval)
         stats["contribs"] = int(n_contrib)
     return torch.cat([acc.permute(1, 0, 2), (1.0 - T)[:, None]], dim=1)
+
+
+def _check_bwd(gc4, g2, num_tiles, tile_size, mode):
+    npix = tile_size * tile_size
+    if mode not in BWD_ROWS:
+        raise ValueError(f"mode must be one of {tuple(BWD_ROWS)}, got {mode!r}")
+    if gc4.dtype != torch.float32 or tuple(gc4.shape) != (num_tiles, 4, npix):
+        raise ValueError(f"gc4 must be ({num_tiles}, 4, {npix}) float32, got "
+                         f"{tuple(gc4.shape)} {gc4.dtype}")
+    if g2.dtype != torch.float32 or tuple(g2.shape) != (num_tiles, npix):
+        raise ValueError(f"g2 must be ({num_tiles}, {npix}) float32, got "
+                         f"{tuple(g2.shape)} {g2.dtype}")
+
+
+def composite_bwd(table, sorted_ids, tile_starts, tile_counts, gc4, g2,
+                  tiles_x: int, tiles_y: int, tile_size: int,
+                  mode: str = "full") -> torch.Tensor:
+    """Per-slot compositing gradients, (P, BWD_ROWS[mode]): row s holds the
+    sums over its tile's pixels for sorted slot s.  Slots that no tile
+    composites (dead, past the per-tile cap, or past the tile's early exit)
+    are zero.  The per-gaussian sum over a gaussian's slots is the
+    caller's (``composite.slots_to_gaussians``)."""
+    num_tiles = tiles_x * tiles_y
+    _check_inputs(table, sorted_ids, tile_starts, tile_counts, num_tiles)
+    _check_bwd(gc4, g2, num_tiles, tile_size, mode)
+    dev = table.device
+    if dev.type == "cpu":
+        return composite_bwd_plain(table, sorted_ids, tile_starts, tile_counts,
+                                   gc4, g2, tiles_x, tiles_y, tile_size, mode)
+    if dev.type != "cuda":
+        raise ValueError(f"composite_bwd: unsupported device {dev}")
+    _check_cuda(tile_size, table, sorted_ids, tile_starts, tile_counts, gc4, g2)
+    lib = build()["composite_bwd"].lib
+    out = torch.zeros((sorted_ids.shape[0], BWD_ROWS[mode]),
+                      dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.gd_composite_bwd(
+            table.data_ptr(), sorted_ids.data_ptr(), tile_starts.data_ptr(),
+            tile_counts.data_ptr(), gc4.data_ptr(), g2.data_ptr(),
+            out.data_ptr(), num_tiles, tiles_x, tile_size,
+            _BWD_MODE_ID[mode], stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"composite_bwd launch failed: CUDA error {err}")
+    launch_counts["composite_bwd"] += 1
+    return out
+
+
+def composite_bwd_plain(table, sorted_ids, tile_starts, tile_counts, gc4, g2,
+                        tiles_x: int, tiles_y: int, tile_size: int,
+                        mode: str = "full",
+                        stats: dict | None = None) -> torch.Tensor:
+    """Plain PyTorch version of the backward kernel, with the semantics of
+    the JAX ``_xla_bwd``: chunks of CHUNK slots of every tile are gathered
+    and their alpha computed as one (T, CHUNK, ts²) block as in the forward's
+    plain version; the transmittance and the prefix of contrib · w then step
+    slot by slot in the kernel's order and rounding, and each slot's rows
+    are summed over the tile's pixels (in another order than the kernel's
+    shuffle tree, so the two agree to rounding, not bitwise).
+
+    ``stats``, if given, receives the number of (slot, live pixel)
+    evaluations and of contributing pairs (the kernel's data-dependent
+    work, for its roofline bound)."""
+    dev = table.device
+    ts = tile_size
+    npix = ts * ts
+    num_tiles = tiles_x * tiles_y
+    f32 = torch.float32
+    p = torch.arange(npix, device=dev)
+    px = (p % ts).to(f32)
+    py = torch.div(p, ts, rounding_mode="floor").to(f32)
+    t = torch.arange(num_tiles, device=dev)
+    ox = ((t % tiles_x) * ts).to(f32)[:, None]
+    oy = (torch.div(t, tiles_x, rounding_mode="floor") * ts).to(f32)[:, None]
+
+    P = sorted_ids.shape[0]
+    out = torch.zeros((P, BWD_ROWS[mode]), dtype=f32, device=dev)
+    T = torch.ones((num_tiles, npix), dtype=f32, device=dev)
+    prefix = torch.zeros((num_tiles, npix), dtype=f32, device=dev)
+    alive = torch.ones((num_tiles, npix), dtype=torch.bool, device=dev)
+    gr, gg, gb, gd = gc4.unbind(1)
+    zero = torch.zeros((), dtype=f32, device=dev)
+    n_eval = torch.zeros((), dtype=torch.int64, device=dev)
+    n_contrib = torch.zeros((), dtype=torch.int64, device=dev)
+
+    starts = tile_starts.long()[:, None]
+    counts = tile_counts.long()[:, None]
+    max_count = int(tile_counts.max()) if num_tiles else 0
+    k = torch.arange(CHUNK, device=dev)[None, :]
+    for c0 in range(0, max_count, CHUNK):
+        in_range = (c0 + k) < counts                            # (T, K)
+        slot = torch.clamp(starts + c0 + k, max=max(P - 1, 0))
+        rows = table[sorted_ids[slot].long()]                   # (T, K, 12)
+        gx0 = (rows[..., 0] - ox)[..., None]
+        gy0 = (rows[..., 1] - oy)[..., None]
+        a, b, c = (rows[..., i][..., None] for i in (2, 3, 4))
+        opa = torch.where(in_range & (rows[..., 10] > 0), rows[..., 5],
+                          torch.zeros_like(rows[..., 5]))[..., None]
+        dx = px - gx0                                           # (T, K, npix)
+        dy = py - gy0
+        power = torch.clamp(-0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy,
+                            max=0.0)
+        alpha = torch.clamp(opa * torch.exp(power), max=ALPHA_MAX)
+        hit = (alpha >= ALPHA_MIN) & in_range[..., None]
+        for j in range(min(CHUNK, max_count - c0)):
+            a_j = alpha[:, j]
+            if stats is not None:
+                n_eval += (alive & in_range[:, j:j + 1]).sum()
+            use = alive & hit[:, j]
+            one_m = 1.0 - a_j
+            U = T * one_m
+            stop = use & (U < T_EPS)
+            alive = alive & ~stop
+            take = use & ~stop
+            w = torch.where(take, a_j * T, zero)
+            col = rows[:, j, :, None]                           # (T, 12, 1)
+            contrib = gr * col[:, 6] + gg * col[:, 7] + gb * col[:, 8] + gd * col[:, 9]
+            prefix = torch.where(take, prefix + contrib * w, prefix)
+            suffix = g2 - prefix
+            inv_1ma = 1.0 / torch.clamp(one_m, min=1.0 - ALPHA_MAX)
+            g_alpha = contrib * T - suffix * inv_1ma
+            g_power = torch.where(take & (a_j < ALPHA_MAX), g_alpha * a_j, zero)
+            dxj, dyj = dx[:, j], dy[:, j]
+            aj, bj, cj = a[:, j], b[:, j], c[:, j]
+            gx = g_power * (aj * dxj + bj * dyj)
+            gy = g_power * (cj * dyj + bj * dxj)
+            if mode == "selonly":
+                cols = [gx.abs(), gy.abs()]
+            else:
+                gh = g_power * -0.5
+                cols = [gx, gy, gh * dxj * dxj, g_power * (-dxj * dyj),
+                        gh * dyj * dyj, g_power, w * gr, w * gg, w * gb, w * gd]
+                if mode == "full":
+                    cols += [gx.abs(), gy.abs()]
+            vals = torch.stack([v.sum(-1) for v in cols], dim=-1)   # (T, W)
+            if mode != "selonly":
+                vals[:, 5] = vals[:, 5] / torch.clamp(col[:, 5, 0], min=1e-12)
+            ok = in_range[:, j]
+            out[slot[ok, j]] = vals[ok]
+            T = torch.where(take, U, T)
+            if stats is not None:
+                n_contrib += take.sum()
+    if stats is not None:
+        stats["evals"] = int(n_eval)
+        stats["contribs"] = int(n_contrib)
+    return out

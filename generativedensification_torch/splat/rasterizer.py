@@ -3,9 +3,10 @@
 Port of ``generativedensification_tpu/splat/rasterizer.py``: image
 (H, W, 3), alpha map, expected depth and per-Gaussian radii.  Tensors on
 the card composite through the CUDA kernel, CPU tensors through its plain
-version; there is no backend switch.  The AbsGS ``screen_offset`` /
-``screen_abs`` gradient hooks and fused selection (``sel_gt``) need the
-compositing backward and arrive with ROADMAP slice 2.
+version; there is no backend switch.  ``sel_gt`` gives the fused AbsGS
+selection gradients of the serving path (``composite_tiles_sel``); the
+``screen_offset`` / ``screen_abs`` gradient hooks need autograd through the
+rasterizer and arrive with the train step, ROADMAP slice 3.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import torch
 
 from ..core.transforms import normalize_quat
 from .binning import bin_gaussians
-from .composite import composite_tiles
+from .composite import composite_tiles, composite_tiles_sel
 from .projection import project_gaussians
 
 
@@ -27,18 +28,23 @@ class RasterizeOutput:
     depth: torch.Tensor      # (H, W) expected depth (Σ z·α·T)
     radii: torch.Tensor      # (N,) screen radius in pixels (0 = culled)
     overflow: torch.Tensor   # () binning + per-tile cap overflow
+    sel_abs: torch.Tensor | None = None  # (N, 2) AbsGS selection grads
+                                         # (only with rasterize(sel_gt=...))
 
 
 def rasterize(means3d, shs, opacities, scales, rotations, camera, bg,
               sh_degree: int, tile_size: int = 32, max_tiles: int = 16,
               max_per_tile: int = 4096, max_pairs: int | None = None,
-              enum_tiles: int | None = None) -> RasterizeOutput:
+              enum_tiles: int | None = None,
+              sel_gt: torch.Tensor | None = None) -> RasterizeOutput:
     """Splat N activated Gaussians into one camera.
 
     means3d (N, 3); shs (N, (d+1)², 3); opacities (N,) sigmoid-activated;
     scales (N, 3) exp-activated; rotations (N, 4) quaternions (normalized
     here); camera a ``core.Camera``; bg (3,).  ``max_pairs`` is the optional
     static live-pair budget (dropped pairs count in ``overflow``).
+    ``sel_gt`` (H, W, 3): the output also carries ``sel_abs``, the AbsGS
+    selection gradients of the image MSE against it, from the same forward.
     """
     N = means3d.shape[0]
     H, W = camera.height, camera.width
@@ -56,17 +62,27 @@ def rasterize(means3d, shs, opacities, scales, rotations, camera, bg,
     # count the truncation in ``overflow``
     tile_counts = torch.clamp(bins.tile_counts, max=max_per_tile)
     cap_overflow = (bins.tile_counts - tile_counts).sum().to(torch.int32)
-    image, alpha, depth = composite_tiles(
-        proj.xy, proj.conic, proj.color, opacity_eff, proj.depth,
-        bg.to(torch.float32), bins.sorted_ids, bins.tile_starts, tile_counts,
-        bins.tiles_x, bins.tiles_y, tile_size, proj.valid,
-    )
+    sel_abs = None
+    if sel_gt is not None:
+        image, alpha, depth, sel_abs = composite_tiles_sel(
+            proj.xy, proj.conic, proj.color, opacity_eff, proj.depth,
+            bg.to(torch.float32), sel_gt, bins.sorted_ids, bins.sorted_o,
+            bins.tile_starts, tile_counts, bins.tiles_x, bins.tiles_y,
+            tile_size, proj.valid, N * max_tiles,
+        )
+    else:
+        image, alpha, depth = composite_tiles(
+            proj.xy, proj.conic, proj.color, opacity_eff, proj.depth,
+            bg.to(torch.float32), bins.sorted_ids, bins.tile_starts,
+            tile_counts, bins.tiles_x, bins.tiles_y, tile_size, proj.valid,
+        )
     return RasterizeOutput(
         image=torch.clamp(image[:H, :W], 0.0, 1.0),
         alpha=alpha[:H, :W],
         depth=depth[:H, :W],
         radii=proj.radius,
         overflow=bins.overflow + cap_overflow,
+        sel_abs=sel_abs,
     )
 
 

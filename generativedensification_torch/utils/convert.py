@@ -2,8 +2,9 @@
 ``state_dict``.
 
 The port's sub-module names follow the Flax tree, so the bridge renames
-(``block{i}`` -> ``blocks.{i}``, ``layer{i}`` -> ``layers.{i}``, ``scale``
--> ``weight``, ``kernel`` -> ``weight``) and converts layouts:
+(``block{i}`` -> ``blocks.{i}``, ``layer{i}`` -> ``layers.{i}``, the
+densifier stages ``dec{s}`` -> ``stages.{s}``, ``scale`` -> ``weight``,
+``kernel`` -> ``weight``) and converts layouts:
 
   * Dense ``(in, out)``                      -> ``(out, in)``
   * DenseGeneral q/k/v kernel ``(in, H, Dh)`` -> ``(H·Dh, in)``, bias
@@ -14,8 +15,11 @@ The port's sub-module names follow the Flax tree, so the bridge renames
     ``transpose_kernel=False``) correlates the stride-dilated input with
     the kernel as stored, torch's ``ConvTranspose3d`` with the kernel
     mirrored
-  * LayerNorm ``scale`` -> ``weight``; other leaves (positional and view
-    embeddings, the CLS token) keep their shapes.
+  * the CPE's submanifold-conv kernel ``(27, C_in, C_out)`` keeps its
+    layout (the port contracts it the same way)
+  * LayerNorm ``scale`` -> ``weight``; PDNorm's per-condition ``scale`` and
+    ``bias`` ``(n_conditions, C)`` keep their shapes; other leaves
+    (positional and view embeddings, the CLS token) keep theirs too.
 
 The inverse direction — a torch checkpoint into Flax — lives in the JAX
 package (``utils/torch_convert.py``); its ConvTranspose3d mapping has no
@@ -33,8 +37,10 @@ _QKV = {"query", "key", "value", "q", "k", "v"}
 
 
 def _name(part: str) -> str:
-    m = re.fullmatch(r"(block|layer)(\d+)", part)
-    return f"{m.group(1)}s.{m.group(2)}" if m else part
+    m = re.fullmatch(r"(block|layer|dec)(\d+)", part)
+    if not m:
+        return part
+    return f"{'stages' if m.group(1) == 'dec' else m.group(1) + 's'}.{m.group(2)}"
 
 
 def _convert_leaf(path: tuple, value: np.ndarray):
@@ -43,9 +49,11 @@ def _convert_leaf(path: tuple, value: np.ndarray):
     if leaf == "scale":
         return "weight", value
     if leaf == "bias":
-        return "bias", value.reshape(-1) if value.ndim == 2 else value
+        return "bias", value.reshape(-1) if parent in _QKV else value
     if leaf != "kernel":
         return leaf, value
+    if parent == "cpe":                                   # (27, C_in, C_out)
+        return "weight", value
     if value.ndim == 2:                                   # Dense
         return "weight", value.T
     if value.ndim == 3 and parent in _QKV:                # (in, H, Dh)

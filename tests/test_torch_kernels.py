@@ -1,6 +1,7 @@
-"""The port's forward compositor: its plain version against a per-pixel
-serial reference on the CPU, and the CUDA kernel against the plain version
-on the card (``gpu`` marker; skips without one).
+"""The port's compositing kernels: the forward's plain version against a
+per-pixel serial reference and the backward's modes against each other on
+the CPU, and both CUDA kernels against their plain versions on the card
+(``gpu`` marker; skips without one).
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine with only PyTorch:
@@ -18,7 +19,12 @@ from generativedensification_torch.core.camera import Camera
 from generativedensification_torch.core.transforms import normalize_quat
 from generativedensification_torch.splat import kernels
 from generativedensification_torch.splat.binning import bin_gaussians
-from generativedensification_torch.splat.composite import pack_table
+from generativedensification_torch.splat.composite import (
+    _bwd_common,
+    _images,
+    mse_image_cotangent,
+    pack_table,
+)
 from generativedensification_torch.splat.projection import project_gaussians
 
 torch.set_num_threads(1)
@@ -96,6 +102,48 @@ def test_wrapper_checks_inputs():
         kernels.composite_fwd(table, ids, starts[:-1], counts, tx, ty, ts)
 
 
+def _bwd_inputs(args, seed):
+    """The backward's gc4 / G2 from a forward and a seeded ground truth
+    (the selection pass's image-MSE cotangent plus seeded alpha and depth
+    cotangents, so that every row of the full mode is exercised)."""
+    table, ids, starts, counts, tx, ty, ts = args
+    out = kernels.composite_fwd(*args)
+    bg = torch.ones(3, device=table.device)
+    image, alpha, depth = _images(out, bg, tx, ty, ts)
+    rng = np.random.default_rng(seed)
+    f = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=table.device)
+    gt = f(rng.uniform(size=tuple(image.shape)))
+    cot = (mse_image_cotangent(image, gt), f(rng.normal(size=tuple(alpha.shape)) * 1e-4),
+           f(rng.normal(size=tuple(depth.shape)) * 1e-4))
+    gc4, g2, _ = _bwd_common(out, bg, cot, tx, ty, ts)
+    return gc4, g2
+
+
+def test_bwd_plain_modes_agree():
+    """noabs is full's first ten rows and selonly its last two."""
+    proj = _scene(600, seed=5, dev="cpu", hw=32)
+    args = _inputs(proj, 32, 16)
+    gc4, g2 = _bwd_inputs(args, seed=0)
+    rows = {m: kernels.composite_bwd(*args[:4], gc4, g2, *args[4:], mode=m)
+            for m in kernels.BWD_ROWS}
+    assert float(rows["selonly"].abs().max()) > 0
+    torch.testing.assert_close(rows["noabs"], rows["full"][:, :10], rtol=0, atol=0)
+    torch.testing.assert_close(rows["selonly"], rows["full"][:, 10:], rtol=0, atol=0)
+    assert kernels.launch_counts["composite_bwd"] == 0  # CPU: no launch
+
+
+def test_bwd_wrapper_checks_inputs():
+    proj = _scene(50, seed=1, dev="cpu")
+    args = _inputs(proj, 64, 16)
+    gc4, g2 = _bwd_inputs(args, seed=1)
+    with pytest.raises(ValueError, match="mode"):
+        kernels.composite_bwd(*args[:4], gc4, g2, *args[4:], mode="abs")
+    with pytest.raises(ValueError, match="gc4"):
+        kernels.composite_bwd(*args[:4], gc4[:, :3], g2, *args[4:])
+    with pytest.raises(ValueError, match="g2"):
+        kernels.composite_bwd(*args[:4], gc4, g2.double(), *args[4:])
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -125,3 +173,26 @@ def test_cuda_wrapper_refuses_other_tiles(cuda_device):
     args = _inputs(proj, 64, 8)
     with pytest.raises(ValueError, match="16 or 32"):
         kernels.composite_fwd(*args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["full", "noabs", "selonly"])
+@pytest.mark.parametrize("ts", [16, 32])
+def test_cuda_bwd_matches_plain_and_repeats(cuda_device, ts, mode):
+    """The CUDA backward against its plain version on the card, 256²: each
+    row scaled by its max |value| agrees to 5e-5 (the JAX gradient
+    contract), and two launches give bitwise the same output."""
+    with torch.inference_mode():
+        proj = _scene(20000, seed=6, dev=cuda_device, hw=256, scale=2.0)
+        args = _inputs(proj, 256, ts)
+        gc4, g2 = _bwd_inputs(args, seed=2)
+        before = kernels.launch_counts["composite_bwd"]
+        out = kernels.composite_bwd(*args[:4], gc4, g2, *args[4:], mode=mode)
+        again = kernels.composite_bwd(*args[:4], gc4, g2, *args[4:], mode=mode)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts["composite_bwd"] == before + 2
+        ref = kernels.composite_bwd_plain(*args[:4], gc4, g2, *args[4:], mode=mode)
+    assert torch.equal(out, again)
+    scale = ref.abs().amax(dim=0).clamp(min=1e-30)
+    assert float(scale.min()) > 0
+    torch.testing.assert_close(out / scale, ref / scale, atol=5e-5, rtol=0)

@@ -213,10 +213,43 @@ def test_coarse_network_matches_jax():
 
 
 def test_unported_paths_raise():
-    cfg = tnet.NetworkConfig(**TINY)
-    net = tnet.Network(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    """The paths not ported yet raise and name their ROADMAP items: the
+    isolated selection closure (``share_selection=False``), the 2DGS
+    renderer, the bf16 policy and evaluation with finetuning (``with_ft``)."""
+    from generativedensification_torch.eval.evaluation import config_from_args, main
+
+    net = tnet.Network(tnet.NetworkConfig(**TINY, share_selection=False), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP slice 3"):
         net(t_probe(1, 4, 64, 64, 2, device="cpu"), with_fine=True)
     for over in (dict(renderer="2dgs"), dict(compute_dtype="bfloat16")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tnet.Network(tnet.NetworkConfig(**{**TINY, **over}), device="cpu")
+    cfg = config_from_args(["infer.finetuning.with_ft=True",
+                            "infer.dataset.dataset_name=synthetic"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        main(cfg, device="cpu")
+
+
+def test_weight_bridge_fills_the_fine_tree():
+    """``load_flax_params`` on a ``with_fine=True`` tree fills every
+    parameter of the port (densifier stages and fine head included) with
+    the bridged value, and refuses a tree that lacks one."""
+    fine = dict(TINY, k_num=96, dec_depths=(1, 1), dec_channels=(32, 48),
+                dec_num_head=(4, 6), non_leaf_ratio=(0.75,), mask_pool=192,
+                pdnorm_ln=True)
+    jn = jnet.Network(jnet.NetworkConfig(**fine, drop_path=0.0))
+    p = jax.tree.map(np.asarray, _np_params(jn, j_probe(1, 4, 64, 64, 2, seed=0),
+                                            with_fine=True, seed=12))
+    tn = tnet.Network(tnet.NetworkConfig(**fine), device="cpu")
+    tn.load_flax_params(p)
+    sd = state_dict_from_flax(p["params"])
+    own = tn.state_dict()
+    assert set(sd) == set(own)
+    assert any(k.startswith("stages.1.blocks.0.cpe.") for k in own)
+    assert own["stages.0.blocks.0.cpe.weight"].shape == (27, 32, 32)
+    assert own["stages.0.blocks.0.norm1.weight"].shape == (3, 32)    # PDNorm
+    for k, v in sd.items():
+        assert torch.equal(own[k], v), k
+    del p["params"]["dec1"]["head"]
+    with pytest.raises(KeyError, match="dec|stages.1.head"):
+        tnet.Network(tnet.NetworkConfig(**fine), device="cpu").load_flax_params(p)
