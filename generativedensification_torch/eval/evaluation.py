@@ -8,8 +8,9 @@ per-scene JSON schema ``{"mean": ..., "scenes": {scene: {...}}}``.
 
     python -m generativedensification_torch.eval.evaluation [infer.yaml] [key=value ...]
 
-runs on the card.  The port's models compute in f32 (the bf16 compute
-policy arrives with ROADMAP slice 3), so the command line sets
+runs on the card; ``tpu.renderer=2dgs`` serves through the 2DGS surfel
+renderer.  The port's models compute in f32 (the bf16 compute
+policy arrives with ROADMAP slice 4), so the command line sets
 ``tpu.compute_dtype=float32`` ahead of the given overrides; the config
 default ``bfloat16`` of the TPU group would raise.  ``infer.ckpt_path``
 None means seeded weights (``infer.seed``, default 0).  Not ported yet,
@@ -40,7 +41,7 @@ def _check_supported(icfg) -> None:
         raise NotImplementedError(
             "infer.finetuning.with_ft: per-scene finetuning needs the "
             "rasterizer's autograd backward; it arrives with ROADMAP queue 1 "
-            "(eval and tools), after slice 3")
+            "(eval and tools), after slice 4")
     if int(icfg.get("video_frames", 0)) > 0:
         raise NotImplementedError(
             "infer.video_frames: the orbit video arrives with ROADMAP queue 1 "
@@ -54,7 +55,7 @@ def _check_supported(icfg) -> None:
     if icfg.ckpt_path not in (None, "None"):
         raise NotImplementedError(
             f"infer.ckpt_path={icfg.ckpt_path!r}: the port's checkpoints "
-            "arrive with ROADMAP slice 3 (train state); None runs seeded "
+            "arrive with ROADMAP slice 4 (train state); None runs seeded "
             "weights")
 
 

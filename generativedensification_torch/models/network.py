@@ -14,10 +14,16 @@ Port of ``generativedensification_tpu/models/network.py``
     decoder stages, the union of the decoder leaves with the unselected
     pool remainder, and every view rendered again from that union.
 
+``renderer="2dgs"`` (``tpu.renderer``) sends every render, coarse and fine,
+through the surfel rasterizer (``splat/surfel.py``: one surfel forward
+launch per view, one ``selonly`` surfel backward per source view for the
+fused selection) and adds the coarse ``rend_dist``, ``rend_normal`` and
+``depth_normal`` maps; ``depth`` is then the 2DGS surface depth.
+
 Not ported yet, each raising ``NotImplementedError`` with the ROADMAP item
 that brings it: ``share_selection=False`` (the isolated selection closure
-needs autograd through the rasterizer — ROADMAP slice 3), the 2DGS renderer
-(ROADMAP queue 1, 2DGS) and the bf16 compute policy (ROADMAP slice 3).
+needs autograd through the rasterizer — ROADMAP slice 4) and the bf16
+compute policy (ROADMAP slice 4).
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ import torch
 from torch import nn
 
 from ..core.camera import Camera
-from ..core.rays import rays_to_plucker
+from ..core.rays import camera_rays, rays_to_plucker
 from ..core.sh import rsh_cart
 from ..points.modules import (
     Block,
@@ -52,6 +58,7 @@ from ..points.structure import (
     serialize_pointset,
 )
 from ..splat.rasterizer import rasterize
+from ..splat.surfel import depth_to_normal, rasterize_surfels, surface_depth
 from ..utils.device import resolve_device
 from .backbone import (
     GaussianDecoder,
@@ -70,7 +77,7 @@ class NetworkConfig:
     """Static hyperparameters (the JAX ``NetworkConfig`` fields the serving
     forward reads; the TPU data-plane knobs — backend, vmap/remat of
     renders, the XLA chunk — have no meaning here, and the train-time ones,
-    drop-path and order shuffling, arrive with ROADMAP slice 3)."""
+    drop-path and order shuffling, arrive with ROADMAP slice 4)."""
 
     n_views: int = 4
     encoder_backbone: str = "vit_base_patch16_224.dino"
@@ -109,7 +116,7 @@ class NetworkConfig:
     pdnorm_ln: bool = False
     pdnorm_conditions: tuple = ("ScanNet", "S3DIS", "Structured3D")
     mask_pool: int = 49152        # static stand-in for the opacity mask
-    share_selection: bool = True  # fused selection (False: slice 3)
+    share_selection: bool = True  # fused selection (False: slice 4)
     # rasterizer static budgets
     tile_size: int = 32
     max_tiles: int = 4
@@ -118,7 +125,8 @@ class NetworkConfig:
     pair_budget: float = 0.0
     scene_size: float = 0.5
     compute_dtype: str = "float32"
-    renderer: str = "3dgs"
+    renderer: str = "3dgs"        # 3dgs | 2dgs
+    depth_ratio: float = 0.0      # 2DGS expected/median depth blend
 
     @classmethod
     def from_config(cls, cfg: Any) -> "NetworkConfig":
@@ -171,6 +179,7 @@ class NetworkConfig:
             pair_budget=get(tpu, "pair_budget", cls.pair_budget),
             compute_dtype=get(tpu, "compute_dtype", cls.compute_dtype),
             renderer=get(tpu, "renderer", cls.renderer),
+            depth_ratio=get(tpu, "depth_ratio", cls.depth_ratio),
         )
 
     @property
@@ -298,14 +307,10 @@ class Network(nn.Module):
 
     def __init__(self, cfg: NetworkConfig, device=None, seed: int = 0):
         super().__init__()
-        if cfg.renderer != "3dgs":
-            raise NotImplementedError(
-                f"renderer={cfg.renderer!r}: the 2DGS surfel renderer and its "
-                "kernels arrive with ROADMAP queue 1 (2DGS renderer)")
         if cfg.compute_dtype != "float32":
             raise NotImplementedError(
                 f"compute_dtype={cfg.compute_dtype!r}: the bf16 compute policy "
-                "arrives with ROADMAP slice 3 (train step)")
+                "arrives with ROADMAP slice 4 (train step)")
         self.cfg = cfg
         dev = resolve_device(device)
         self.img_encoder = DinoEncoder(cfg.encoder_backbone)
@@ -404,6 +409,9 @@ class Network(nn.Module):
         max_pairs = (int(centers.shape[0] * cfg.pair_budget)
                      if cfg.pair_budget > 0 else None)
         n_sel = 0 if sel_gt is None else sel_gt.shape[0]
+        if cfg.renderer == "2dgs":
+            return self._render_views_2dgs(cams, bgs, centers, shs, opacity,
+                                           scales, rotation_raw, sel_gt)
         outs = [
             rasterize(centers, shs, opacity, scales, rotation_raw, cams[j],
                       bgs[j], cfg.sh_degree, tile_size=cfg.tile_size,
@@ -417,6 +425,36 @@ class Network(nn.Module):
         if n_sel:
             res["sel_abs"] = torch.stack([o.sel_abs for o in outs[:n_sel]])
         return res
+
+    def _render_views_2dgs(self, cams, bgs, centers, shs, opacity, scales,
+                           rotation_raw, sel_gt=None) -> dict:
+        """Surfel rasterization of one sample's views and the 2DGS maps:
+        the surface depth (expected depth / alpha blended with the median
+        depth by ``depth_ratio``), the rendered normal rotated to world
+        space, the depth-derived normal and the distortion."""
+        cfg = self.cfg
+        n_sel = 0 if sel_gt is None else sel_gt.shape[0]
+        res = {k: [] for k in ("image", "alpha", "depth", "overflow", "dist",
+                               "rend_normal", "depth_normal", "sel_abs")}
+        for j in range(bgs.shape[0]):
+            cam = cams[j]
+            out = rasterize_surfels(
+                centers, shs, opacity, scales[..., :2], rotation_raw, cam, bgs[j],
+                cfg.sh_degree, tile_size=cfg.tile_size, max_tiles=cfg.max_tiles,
+                max_per_tile=cfg.max_per_tile, enum_tiles=cfg.enum_tiles or None,
+                sel_gt=sel_gt[j] if j < n_sel else None)
+            surf_depth = surface_depth(out, cfg.depth_ratio)
+            res["image"].append(out.image)
+            res["alpha"].append(out.alpha)
+            res["depth"].append(surf_depth)
+            res["overflow"].append(out.overflow)
+            res["dist"].append(out.dist)
+            res["rend_normal"].append(out.normal @ cam.world_view_transform[:3, :3].T)
+            res["depth_normal"].append(
+                depth_to_normal(surf_depth, camera_rays(cam), out.alpha))
+            if j < n_sel:
+                res["sel_abs"].append(out.sel_abs)
+        return {k: torch.stack(v) for k, v in res.items() if v}
 
     def _render_all(self, batch, cams_all, gs, valid, sel_gt=None) -> dict:
         """Every sample's views -> outputs stacked as (B, V_total, ...)."""
@@ -436,7 +474,7 @@ class Network(nn.Module):
         if with_fine and not cfg.share_selection:
             raise NotImplementedError(
                 "share_selection=False: the isolated selection closure needs "
-                "autograd through the rasterizer, ROADMAP slice 3 (train step)")
+                "autograd through the rasterizer, ROADMAP slice 4 (train step)")
         B, V_total, H, W, _ = batch["tar_rgb"].shape
         V = cfg.n_views
 
@@ -490,6 +528,11 @@ class Network(nn.Module):
             "acc_map": _cat_views(coarse["alpha"]),
             "overflow": coarse["overflow"],
         }
+        if cfg.renderer == "2dgs":
+            # the 2DGS maps of the coarse renders (the regularizers' inputs)
+            outputs["rend_dist"] = _cat_views(coarse["dist"])
+            outputs["rend_normal"] = _cat_views(coarse["rend_normal"])
+            outputs["depth_normal"] = _cat_views(coarse["depth_normal"])
         render_pkg = [(centers, shs_c, opacity_c, scaling_c, rotation_c)]
         if not with_fine:
             outputs["render_pkg"] = render_pkg

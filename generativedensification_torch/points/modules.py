@@ -2,7 +2,7 @@
 
 Port of ``generativedensification_tpu/points/modules.py`` over the dense
 batched :class:`~.structure.PointSet`, for the serving path (no dropout or
-drop-path: the train-time forms arrive with ROADMAP slice 3):
+drop-path: the train-time forms arrive with ROADMAP slice 4):
 
   * ``WindowAttention`` — windowed attention over one serialized order;
     every point budget is a multiple of the patch size, so it is a plain

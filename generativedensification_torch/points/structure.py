@@ -65,7 +65,7 @@ def grid_quantize(coord: torch.Tensor, mask: torch.Tensor, grid_size: float) -> 
 def serialize_pointset(ps: PointSet, orders=("z", "z-trans", "hilbert", "hilbert-trans"),
                        depth: int | None = None) -> PointSet:
     """Per-order sort permutations (stable sort on the int64 key).  The
-    train-time order shuffling arrives with ROADMAP slice 3."""
+    train-time order shuffling arrives with ROADMAP slice 4."""
     if depth is None:
         depth = depth_for_grid(ps.grid_size)
     gc = grid_quantize(ps.coord, ps.mask, ps.grid_size)

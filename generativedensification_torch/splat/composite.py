@@ -15,7 +15,7 @@ into per-Gaussian gradients in the three modes of the JAX backward;
 ``composite_tiles_sel`` runs it in ``selonly`` mode against the image-MSE
 cotangent to give the AbsGS selection gradients of the serving path.  The
 autograd wiring of ``composite_tiles`` (``full`` / ``noabs`` behind
-``CompositeTiles.backward``) belongs to the train step, ROADMAP slice 3.
+``CompositeTiles.backward``) belongs to the train step, ROADMAP slice 4.
 """
 
 from __future__ import annotations
@@ -81,7 +81,7 @@ class CompositeTiles(torch.autograd.Function):
         raise NotImplementedError(
             "composite_tiles has no autograd backward yet: the compositing "
             "gradient (kernel composite_bwd, modes full / noabs) is wired "
-            "into autograd with the train step, ROADMAP slice 3"
+            "into autograd with the train step, ROADMAP slice 4"
         )
 
 
@@ -206,7 +206,7 @@ class CompositeTilesSel(torch.autograd.Function):
     def backward(ctx, *grads):
         raise NotImplementedError(
             "composite_tiles_sel has no autograd backward yet: it arrives "
-            "with the train step, ROADMAP slice 3"
+            "with the train step, ROADMAP slice 4"
         )
 
 

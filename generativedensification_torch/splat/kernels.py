@@ -1,12 +1,16 @@
 """The 3DGS compositing kernels: CUDA kernel wrappers, launch counts and the
-plain PyTorch versions.
+plain PyTorch versions; the build of every kernel of the port.
 
 Replaces ``generativedensification_tpu/splat/pallas_kernels.py``'s
 ``pallas_composite_fwd`` (``csrc/composite_fwd.cu``) and
-``pallas_composite_bwd`` (``csrc/composite_bwd.cu``).  Each source is built
-with ``nvcc`` for ``sm_90a`` into a plain-C shared library at first use (all
-sources compiled at once, one ``nvcc`` each) and loaded with ``ctypes``;
-nothing is compiled or imported for them when this module is imported.
+``pallas_composite_bwd`` (``csrc/composite_bwd.cu``).  The 2DGS surfel
+kernels (``csrc/surfel_fwd.cu``, ``csrc/surfel_bwd.cu``) have their wrappers
+in ``surfel_kernels.py`` and are registered here too, so that ``build()``
+compiles all four sources and ``launch_counts`` counts every launch.  Each
+source is built with ``nvcc`` for ``sm_90a`` into a plain-C shared library at
+first use (all sources compiled at once, one ``nvcc`` each) and loaded with
+``ctypes``; nothing is compiled or imported for them when this module is
+imported.
 
 ``composite_fwd`` and ``composite_bwd`` are the entries: tensors on the card
 launch the kernel (or raise), tensors on the CPU take the plain version.
@@ -59,7 +63,8 @@ NVCC_FLAGS = (
 
 # launches of each kernel of this module; a wrapper adds one where it
 # launches, and nowhere else
-launch_counts = {"composite_fwd": 0, "composite_bwd": 0}
+launch_counts = {"composite_fwd": 0, "composite_bwd": 0, "surfel_fwd": 0,
+                 "surfel_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -86,6 +91,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _libraries = {
     "composite_fwd": _Library("composite_fwd", [_P] * 5 + [_I] * 3 + [_P]),
     "composite_bwd": _Library("composite_bwd", [_P] * 7 + [_I] * 4 + [_P]),
+    "surfel_fwd": _Library("surfel_fwd", [_P] * 6 + [_I] * 3 + [_P]),
+    "surfel_bwd": _Library("surfel_bwd", [_P] * 8 + [_I] * 4 + [_P]),
 }
 
 
@@ -141,9 +148,10 @@ def build() -> dict[str, _Library]:
     return _libraries
 
 
-def _check_inputs(table, sorted_ids, tile_starts, tile_counts, num_tiles):
-    if table.dtype != torch.float32 or table.dim() != 2 or table.shape[1] != TABLE_W:
-        raise ValueError(f"table must be (N, {TABLE_W}) float32, got "
+def _check_inputs(table, sorted_ids, tile_starts, tile_counts, num_tiles,
+                  width: int = TABLE_W):
+    if table.dtype != torch.float32 or table.dim() != 2 or table.shape[1] != width:
+        raise ValueError(f"table must be (N, {width}) float32, got "
                          f"{tuple(table.shape)} {table.dtype}")
     for name, t in (("sorted_ids", sorted_ids), ("tile_starts", tile_starts),
                     ("tile_counts", tile_counts)):
@@ -157,7 +165,7 @@ def _check_inputs(table, sorted_ids, tile_starts, tile_counts, num_tiles):
 def _check_cuda(tile_size, table, *rest):
     """What the CUDA kernels take beyond ``_check_inputs``."""
     if tile_size not in (16, 32):
-        raise ValueError(f"the CUDA compositor takes 16 or 32 px tiles, "
+        raise ValueError(f"the CUDA compositors take 16 or 32 px tiles, "
                          f"got {tile_size}")
     if any(t.device != table.device for t in rest):
         raise ValueError("all compositor inputs must be on one device")

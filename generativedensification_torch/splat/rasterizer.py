@@ -6,7 +6,7 @@ the card composite through the CUDA kernel, CPU tensors through its plain
 version; there is no backend switch.  ``sel_gt`` gives the fused AbsGS
 selection gradients of the serving path (``composite_tiles_sel``); the
 ``screen_offset`` / ``screen_abs`` gradient hooks need autograd through the
-rasterizer and arrive with the train step, ROADMAP slice 3.
+rasterizer and arrive with the train step, ROADMAP slice 4.
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ loss.py`` (pytorch_msssim semantics: gaussian window 11, sigma 1.5,
 K = (0.01, 0.03), valid padding).  The blur is the shift-and-add f32 form
 of ``_blur``, not a convolution: a cuDNN convolution may run in TF32 and
 then loses the E[x²] - E[x]² cancellation.  MS-SSIM and the training
-losses arrive with ROADMAP slice 3.
+losses arrive with ROADMAP slice 4.
 """
 
 from __future__ import annotations

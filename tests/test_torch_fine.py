@@ -216,7 +216,7 @@ def test_fine_network_matches_jax(residual, monkeypatch):
     kernels.reset_launch_counts()
     with torch.inference_mode():
         to = tn(t_probe(1, 4, 64, 64, 2, seed=0, device="cpu"), with_fine=True)
-    assert kernels.launch_counts == {"composite_fwd": 0, "composite_bwd": 0}
+    assert not any(kernels.launch_counts.values())   # CPU: no launch
 
     # both boundaries clear twice the tolerance to which the two sides agree
     (opa, _, k_pool), (score, valid, k_sel) = splits

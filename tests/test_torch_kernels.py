@@ -1,7 +1,8 @@
 """The port's compositing kernels: the forward's plain version against a
 per-pixel serial reference and the backward's modes against each other on
-the CPU, and both CUDA kernels against their plain versions on the card
-(``gpu`` marker; skips without one).
+the CPU, the same for the 2DGS surfel kernels, and all four CUDA kernels
+against their plain versions on the card (``gpu`` marker; skips without
+one).
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine with only PyTorch:
@@ -26,6 +27,7 @@ from generativedensification_torch.splat.composite import (
     pack_table,
 )
 from generativedensification_torch.splat.projection import project_gaussians
+from generativedensification_torch.splat import surfel, surfel_kernels
 
 torch.set_num_threads(1)
 
@@ -192,6 +194,177 @@ def test_cuda_bwd_matches_plain_and_repeats(cuda_device, ts, mode):
         torch.cuda.synchronize()
         assert kernels.launch_counts["composite_bwd"] == before + 2
         ref = kernels.composite_bwd_plain(*args[:4], gc4, g2, *args[4:], mode=mode)
+    assert torch.equal(out, again)
+    scale = ref.abs().amax(dim=0).clamp(min=1e-30)
+    assert float(scale.min()) > 0
+    torch.testing.assert_close(out / scale, ref / scale, atol=5e-5, rtol=0)
+
+
+# --------------------------------------------------------------------------
+# the 2DGS surfel kernels
+# --------------------------------------------------------------------------
+
+
+def _surfel_inputs(n, seed, dev, hw=32, ts=16, max_tiles=16):
+    """A seeded surfel scene (the JAX backend-parity scene's distributions),
+    set up and binned by the port: the kernels' inputs."""
+    rng = np.random.default_rng(seed)
+    f = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    means = f(rng.uniform(-0.35, 0.35, (n, 3)))
+    shs = f(rng.normal(size=(n, 4, 3)) * 0.3 + 0.2)
+    opa = torch.sigmoid(f(rng.normal(size=(n,))))
+    scales = f(np.exp(rng.uniform(np.log(0.05), np.log(0.15), (n, 2))) * 64 / hw)
+    quats = normalize_quat(f(rng.normal(size=(n, 4))))
+    c2w = np.eye(4, dtype=np.float32)
+    c2w[2, 3] = -1.6
+    cam = Camera.from_c2w(f(c2w), 0.8, 0.8, hw, hw, znear=0.2, zfar=4.0)
+    si = surfel.surfel_inputs(means, shs, opa, scales, quats, cam, 1, ts,
+                              max_tiles, 256, enum_tiles=max_tiles)
+    table = surfel.pack_surfel_table(*si.attrs)
+    ids, _, starts, counts = si.bins
+    return (table, ids, starts, counts, si.planes, *si.dims), si
+
+
+def _surfel_serial_reference(table, ids, starts, counts, planes, tiles_x,
+                             tiles_y, ts):
+    """The surfel forward one pixel at a time, one slot at a time, in
+    float32 scalars: the chain of ``surfel_kernels`` written out."""
+    f = np.float32
+    tab = table.numpy()
+    znear, zfar = planes.numpy()
+    F = zfar / (zfar - znear)
+    out = np.zeros((tiles_x * tiles_y, 13, ts * ts), np.float32)
+    for t in range(tiles_x * tiles_y):
+        seg = ids.numpy()[starts[t]: starts[t] + counts[t]]
+        for p in range(ts * ts):
+            X, Y = f((t % tiles_x) * ts + p % ts), f((t // tiles_x) * ts + p // ts)
+            T, acc = f(1.0), np.zeros(12, np.float32)
+            for g in seg:
+                a, b, c = tab[g, 0:3], tab[g, 3:6], tab[g, 6:9]
+                det, px, py, opa = tab[g, 9:13]
+                dx, dy = X - px, Y - py
+                d2 = dx * dx + dy * dy
+                if not d2 <= tab[g, 19] * tab[g, 19]:
+                    continue
+                cr = (a + X * b) + Y * c
+                rz = f(1) / (f(1e-8) if abs(cr[2]) < f(1e-8) else cr[2])
+                u, v = cr[0] * rz, cr[1] * rz
+                power = max(f(-0.5) * (u * u + v * v), f(-0.25) * d2)
+                z = det * rz
+                alpha = min(f(0.99), opa * f(math.exp(power)))
+                if alpha < f(1 / 255) or not z > f(0.2):
+                    continue
+                U = T * (f(1) - alpha)
+                if U < f(1e-4):
+                    break
+                if T > 0.5 and U < 0.5:
+                    acc[7] = z
+                w = alpha * T
+                m = F * (f(1) - znear / max(z, f(1e-6)))
+                acc[0:6] += w * tab[g, 13:19]
+                acc[6] += w * z
+                acc[9:12] += w * np.asarray([1, m, m * m], np.float32)
+                T = U
+            acc[8] = acc[9] * acc[11] - acc[10] * acc[10]
+            out[t, :12, p] = acc
+            out[t, 12, p] = T
+    return out
+
+
+@pytest.mark.parametrize("ts", [16, 32])
+def test_surfel_plain_matches_serial_reference(ts):
+    args, si = _surfel_inputs(24, seed=0, dev="cpu", ts=ts)
+    with torch.inference_mode():
+        out = surfel_kernels.surfel_fwd(*args)      # CPU tensor -> plain
+    ref = _surfel_serial_reference(*args)
+    assert ref[:, 12].min() < 0.5 and (ref[:, 7] > 0).any()
+    np.testing.assert_allclose(out.numpy(), ref, atol=2e-5, rtol=1e-5)
+
+
+def test_surfel_wrappers_check_inputs():
+    args, si = _surfel_inputs(20, seed=1, dev="cpu")
+    table, ids, starts, counts, planes, tx, ty, ts = args
+    with pytest.raises(ValueError, match="table"):
+        surfel_kernels.surfel_fwd(table[:, :20].contiguous(), *args[1:])
+    with pytest.raises(ValueError, match="planes"):
+        surfel_kernels.surfel_fwd(table, ids, starts, counts, planes[:1], tx, ty, ts)
+    with pytest.raises(ValueError, match="int32"):
+        surfel_kernels.surfel_fwd(table, ids.long(), starts, counts, planes, tx, ty, ts)
+    cot8 = torch.zeros((tx * ty, 8, ts * ts))
+    aux5 = torch.zeros((tx * ty, 5, ts * ts))
+    with pytest.raises(ValueError, match="mode"):
+        surfel_kernels.surfel_bwd(*args[:5], cot8, aux5, tx, ty, ts, mode="noabs")
+    with pytest.raises(ValueError, match="aux5"):
+        surfel_kernels.surfel_bwd(*args[:5], cot8, aux5[:, :4], tx, ty, ts)
+
+
+def _surfel_bwd_inputs(args, si, seed):
+    """cot8 / aux5 from a forward, the image-MSE cotangent of a seeded
+    ground truth and seeded cotangents on the other five maps."""
+    table = args[0]
+    out = surfel_kernels.surfel_fwd(*args)
+    bg = torch.ones(3, device=table.device)
+    maps = surfel._maps(out, bg, *si.dims)
+    rng = np.random.default_rng(seed)
+    f = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=table.device)
+    gt = f(rng.uniform(size=tuple(maps[0].shape)))
+    cot = (mse_image_cotangent(maps[0], gt),
+           *(f(rng.normal(size=tuple(m.shape)) * 1e-4) for m in maps[1:]))
+    return {mode: surfel._bwd_rows(out, bg, cot, si.dims, mode)[:2]
+            for mode in surfel_kernels.SURFEL_BWD_ROWS}
+
+
+def test_surfel_bwd_selonly_is_the_screen_gradient():
+    """``selonly``'s Σ_pixels |d/dscreen x| against the signed rows of
+    ``full`` under the same image-only cotangent: a screen move shifts acr by
+    -bcr·ox and the center by ox, so |-(d_acr · bcr) + d_px| = |Σ gx| can
+    not exceed it, slot by slot."""
+    args, si = _surfel_inputs(24, seed=2, dev="cpu")
+    rows = _surfel_bwd_inputs(args, si, seed=0)
+    sel = surfel_kernels.surfel_bwd(*args[:5], *rows["selonly"], *args[5:],
+                                    mode="selonly")
+    cot8, aux5 = rows["selonly"]
+    full = surfel_kernels.surfel_bwd(*args[:5], cot8, aux5, *args[5:], mode="full")
+    table = args[0]
+    gx = -(full[:, 0:3] * table[args[1].long(), 3:6]).sum(-1) + full[:, 10]
+    assert float(sel[:, 0].max()) > 0
+    assert bool((sel[:, 0] >= gx.abs() - 1e-6 * float(sel[:, 0].max())).all())
+    assert not any(kernels.launch_counts[k] for k in ("surfel_fwd", "surfel_bwd"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ts", [16, 32])
+def test_cuda_surfel_fwd_matches_plain(cuda_device, ts):
+    """The CUDA surfel compositor against its plain version on the card,
+    256², every output row within 2e-4."""
+    with torch.inference_mode():
+        args, _ = _surfel_inputs(3000, seed=3, dev=cuda_device, hw=256, ts=ts)
+        before = kernels.launch_counts["surfel_fwd"]
+        out = surfel_kernels.surfel_fwd(*args)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts["surfel_fwd"] == before + 1
+        ref = surfel_kernels.surfel_fwd_plain(*args)
+    assert float(out[:, 12].min()) < 0.5
+    torch.testing.assert_close(out, ref, atol=2e-4, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["full", "selonly"])
+@pytest.mark.parametrize("ts", [16, 32])
+def test_cuda_surfel_bwd_matches_plain_and_repeats(cuda_device, ts, mode):
+    """The CUDA surfel backward against its plain version on the card, 256²:
+    each row scaled by its max |value| within 5e-5, and two launches
+    bitwise equal."""
+    with torch.inference_mode():
+        args, si = _surfel_inputs(3000, seed=6, dev=cuda_device, hw=256, ts=ts)
+        cot8, aux5 = _surfel_bwd_inputs(args, si, seed=2)[mode]
+        bargs = (*args[:5], cot8, aux5, *args[5:])
+        before = kernels.launch_counts["surfel_bwd"]
+        out = surfel_kernels.surfel_bwd(*bargs, mode=mode)
+        again = surfel_kernels.surfel_bwd(*bargs, mode=mode)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts["surfel_bwd"] == before + 2
+        ref = surfel_kernels.surfel_bwd_plain(*bargs, mode=mode)
     assert torch.equal(out, again)
     scale = ref.abs().amax(dim=0).clamp(min=1e-30)
     assert float(scale.min()) > 0
