@@ -40,13 +40,30 @@ Drives ``generativedensification_torch`` only (no JAX):
    serving forward with exactly 16 surfel-forward and 4 surfel-backward
    launches (and no 3DGS launch), finite 2DGS maps, peak memory, overflow
    and a device-time breakdown by stage;
-8. evaluation phase: ``eval.evaluation.main`` on 2 ``synthetic`` scenes at
+8. the f32 train phases, each renderer: the training configuration
+   (``load_config()``: ``mask_pool`` 49,152, k 12,000, drop-path 0.3, order
+   shuffling, accumulation 2) with the warmup budgets of
+   ``train/train.py`` (3DGS 9 / 16 / 8192, 2DGS 16 / 25 / 16,384), seeded
+   weights, 2 warm-up and 4 timed micro-steps (host clock + synchronize)
+   with exactly 16 forward and 20 backward compositor launches each
+   (4 ``selonly`` + 16 ``noabs`` for 3DGS, + 16 ``full`` for 2DGS; the
+   2DGS state past micro-step 1000, so its regularizers are on), finite
+   loss and gradient norm, overflow, peak memory, a device-time breakdown
+   (forward, loss, backward by stage, optimizer) and the profiler's busy
+   share; then one micro-step each under ``GD_APOS_MODE`` ``gauss_dsum``,
+   ``gauss`` and ``gauss_dsum_col`` (deterministic algorithms, same weights,
+   batch and generator seed): 20 launches of kernel #5, respectively #6,
+   the loss and every gradient against ``gauss_dsum`` (1e-6 scaled), and
+   kernels #5 / #6 bitwise against their plain versions on the inputs
+   those micro-steps gave them, timed against the one PyTorch call that
+   computes the same function;
+9. evaluation phase: ``eval.evaluation.main`` on 2 ``synthetic`` scenes at
    512² with seeded weights, with each renderer;
-9. the tiny configuration with the fine stage on the card and on the CPU
+10. the tiny configuration with the fine stage on the card and on the CPU
    from the same seeded weights, with each renderer: Gaussians, selection
    scores and selected index sets agree, images agree but for isolated
    knife-edge pixels;
-10. prints the per-phase JSON, the card, the ``{"kernels": [...]}`` line,
+11. prints the per-phase JSON, the card, the ``{"kernels": [...]}`` line,
    and as the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a card or outside a checkout.
@@ -60,6 +77,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -106,6 +124,15 @@ SURFEL_OPS_PER_CONTRIB = {"fwd": 30, "selonly": 55, "full": 106}
 # 0.61% of depth-normal pixels)
 SURFEL_KNIFE_EDGE_SHARE = 1e-2
 V_TOTAL, N_VIEWS, HW = 8, 4, 512
+# the warmup budgets (max_tiles, enum_tiles, max_per_tile) that
+# generativedensification_tpu/train/train.py applies for the first
+# overflow_warmup_steps micro-steps, per renderer
+WARMUP_BUDGETS = {"3dgs": (9, 16, 8192), "2dgs": (16, 25, 16384)}
+# gradients of the GD_APOS_MODE strategies against gauss_dsum, scaled by
+# each parameter's max |value|; the analytically zero ones (the ViT key
+# bias) must stay below this share of the step's largest gradient instead
+APOS_GRAD_TOL = 1e-6
+ZERO_GRAD = ("attn.key.bias",)
 
 
 def fail(msg: str) -> None:
@@ -113,14 +140,17 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median device time of ``fn()`` over ``reps`` calls (CUDA events)."""
+def cuda_ms(fn, reps: int, warmup: int = 2, before=None) -> float:
+    """Median device time of ``fn()`` over ``reps`` calls (CUDA events);
+    ``before()``, if given, runs ahead of each call outside the timing."""
     import torch
 
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
+        if before is not None:
+            before()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -286,7 +316,7 @@ def surfel_kernel_inputs(means, shs, opa, scales2d, quats, cam, tile_size,
     si = surfel_inputs(means, shs, opa, scales2d, quats, cam, 1, tile_size,
                        max_tiles, max_per_tile)
     table = pack_surfel_table(*si.attrs)
-    ids, _, starts, counts = si.bins
+    ids, _, _, starts, counts = si.bins
     return (table, ids, starts, counts, si.planes, *si.dims), si
 
 
@@ -520,9 +550,10 @@ def forward_breakdown(net, batch, with_fine: bool) -> dict:
     return ms
 
 
-def device_busy(net, batch, with_fine: bool) -> dict:
-    """``torch.profiler`` over one forward: the summed device time of every
-    CUDA kernel against the forward's wall time, and the top kernels."""
+def device_busy(fn) -> dict:
+    """``torch.profiler`` over one call of ``fn`` (a forward or a train
+    micro-step): the summed device time of every CUDA kernel against the
+    call's wall time, and the top kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -530,10 +561,13 @@ def device_busy(net, batch, with_fine: bool) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        net(batch, with_fine=with_fine)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels_ = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    # device kernels only: a user annotation (the optimizer's step range)
+    # also carries device time, which would count its kernels twice
+    kernels_ = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)]
     busy_ms = sum(e.self_device_time_total for e in kernels_) / 1e3
     top = sorted(kernels_, key=lambda e: -e.self_device_time_total)[:8]
     return {"wall_ms": wall_ms, "busy_ms": busy_ms,
@@ -565,6 +599,412 @@ def timed_forwards(net, batch, with_fine: bool, expect: dict, n: int = 5):
             fail(f"with_fine={with_fine}: expected launches {expect} per "
                  f"forward, got {launches}")
     return out, times, launches, torch.cuda.max_memory_allocated()
+
+
+def train_config(renderer: str):
+    """The training configuration (``load_config()``: ``mask_pool`` 49,152,
+    k 12,000, drop-path 0.3, order shuffling, ``start_fine`` -1,
+    ``accumulate_grad_batches`` 2) in f32, with the renderer's warmup
+    budgets of ``train/train.py`` (pair budget off)."""
+    from generativedensification_torch.config import load_config
+
+    cfg = load_config()
+    max_tiles, enum_tiles, max_per_tile = WARMUP_BUDGETS[renderer]
+    for k, v in (("tpu.compute_dtype", "float32"), ("tpu.renderer", renderer),
+                 ("tpu.max_tiles", max_tiles), ("tpu.enum_tiles", enum_tiles),
+                 ("tpu.max_per_tile", max_per_tile), ("tpu.pair_budget", 0.0)):
+        cfg.set_dotted(k, v)
+    return cfg
+
+
+def make_trainer(ncfg, tcfg, step0: int, device=None, seed: int = 0):
+    """A network from seeded weights, the optimizer of the train group
+    ``tcfg`` and a train state at micro-step ``step0``."""
+    from generativedensification_torch.models.network import Network
+    from generativedensification_torch.train.optim import make_optimizer
+    from generativedensification_torch.train.state import create_train_state
+
+    net = Network(ncfg, device=device, seed=seed)
+    opt = make_optimizer(net, lr=tcfg.lr, beta1=tcfg.beta1, beta2=tcfg.beta2,
+                         weight_decay=tcfg.weight_decay,
+                         warmup_iters=tcfg.warmup_iters,
+                         grad_clip=tcfg.gradient_clip_val,
+                         accumulate=tcfg.accumulate_grad_batches)
+    state = create_train_state(net, opt, seed=seed)
+    state.step = step0
+    return net, opt, state
+
+
+def check_step_stats(stats, tag: str) -> None:
+    for k, v in stats.items():
+        if not np.isfinite(float(v)):
+            fail(f"{tag}: {k} is not finite ({float(v)})")
+    if not float(stats["grad_norm"]) > 0:
+        fail(f"{tag}: grad_norm {float(stats['grad_norm'])} is not positive")
+
+
+def timed_train_steps(step_fn, state, batch, expect: dict, n: int = 4):
+    """2 warm-up micro-steps, then ``n`` timed ones (host clock around the
+    step and a synchronize), each with the launch counts set to 0 just
+    before and read just after; fails unless every micro-step launched
+    exactly ``expect`` and gave a finite loss and a positive gradient
+    norm."""
+    import torch
+
+    from generativedensification_torch.splat import kernels
+
+    for _ in range(2):
+        state, _ = step_fn(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(n):
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, stats = step_fn(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        launches = dict(kernels.launch_counts)
+        if launches != expect:
+            fail(f"train micro-step: expected launches {expect}, got {launches}")
+        check_step_stats(stats, "train micro-step")
+    return state, stats, times, launches, torch.cuda.max_memory_allocated()
+
+
+def _tensors(x):
+    """The tensors in a module output (tensors, tuples, dataclasses)."""
+    import dataclasses
+
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, (tuple, list)):
+        for y in x:
+            yield from _tensors(y)
+    elif dataclasses.is_dataclass(x):
+        for f in dataclasses.fields(x):
+            yield from _tensors(getattr(x, f.name))
+
+
+def train_breakdown(net, opt, state, batch):
+    """Device time of one train micro-step by stage, from CUDA events on the
+    stream: forward, loss, backward and optimizer; in the backward, the
+    compositor backwards (preamble, kernel, slot reduction and unpacking),
+    their kernel launches and slot reductions alone, and the spans of the
+    densifier stages, the volume transformer and the ViT, each from the
+    first gradient that reaches one of the module's outputs to the last
+    gradient accumulated into its parameters.  "backward_other" is the rest
+    of the backward: the losses' adjoints, the fine head, the pool and
+    union gathers, projection, SH and the 2DGS maps.  Returns the new
+    state and the times."""
+    import torch
+
+    from generativedensification_torch.splat import composite, surfel
+    from generativedensification_torch.train.loss import Losses
+    from generativedensification_torch.train.step import make_train_step
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    marks, in_backward = {}, [False]
+    spans = {"compositor_backward": [], "compositor_backward_kernel": [],
+             "slot_reduction": []}
+    stages = {"densifier": list(net.stages), "vol_decoder": [net.vol_decoder],
+              "img_encoder": [net.img_encoder]}
+    first = {n: [] for n in stages}
+    last = {n: [] for n in stages}
+
+    class TimedLosses(Losses):
+        def __call__(self, batch, output, step):
+            marks["loss_start"] = event()
+            res = super().__call__(batch, output, step)
+            marks["loss_end"] = event()
+            in_backward[0] = True
+            return res
+
+    def timed(name, fn):
+        def run(*a, **k):
+            if not in_backward[0]:
+                return fn(*a, **k)
+            s = event()
+            r = fn(*a, **k)
+            spans[name].append((s, event()))
+            return r
+        return run
+
+    patched = [(composite, "composite_backward", "compositor_backward"),
+               (surfel, "composite_surfels_backward", "compositor_backward"),
+               (composite, "composite_bwd", "compositor_backward_kernel"),
+               (surfel, "surfel_bwd", "compositor_backward_kernel"),
+               (composite, "slots_to_gaussians", "slot_reduction"),
+               (surfel, "slots_to_gaussians", "slot_reduction")]
+    saved = [getattr(m, a) for m, a, _ in patched]
+    handles = [
+        opt.register_step_pre_hook(lambda *a: marks.__setitem__("opt_start", event())),
+        opt.register_step_post_hook(lambda *a: marks.__setitem__("opt_end", event())),
+    ]
+
+    def on_output(name):
+        def hook(mod, args, out):
+            for t in _tensors(out):
+                if t.requires_grad:
+                    t.register_hook(lambda g: first[name].append(event()))
+        return hook
+
+    for name, mods in stages.items():
+        for mod in mods:
+            handles.append(mod.register_forward_hook(on_output(name)))
+            for p in mod.parameters():
+                handles.append(p.register_post_accumulate_grad_hook(
+                    lambda p, n=name: last[n].append(event())))
+    step_fn = make_train_step(net, opt, TimedLosses(), with_fine=True)
+    for (m, a, name), fn in zip(patched, saved):
+        setattr(m, a, timed(name, fn))
+    try:
+        start = event()
+        state, _ = step_fn(state, batch)
+        end = event()
+    finally:
+        for (m, a, _), fn in zip(patched, saved):
+            setattr(m, a, fn)
+        for h in handles:
+            h.remove()
+    torch.cuda.synchronize()
+    el = lambda a, b: a.elapsed_time(b)
+    ms = {"forward": el(start, marks["loss_start"]),
+          "loss": el(marks["loss_start"], marks["loss_end"]),
+          "backward": el(marks["loss_end"], marks["opt_start"]),
+          "optimizer": el(marks["opt_start"], marks["opt_end"]),
+          "total": el(start, end)}
+    for name, v in spans.items():
+        ms[name] = sum(el(s, e) for s, e in v)
+    for name in stages:
+        ms[f"{name}_backward"] = (el(first[name][0], last[name][-1])
+                                  if first[name] and last[name] else 0.0)
+    ms["backward_other"] = ms["backward"] - ms["compositor_backward"] - sum(
+        ms[f"{n}_backward"] for n in stages)
+    ms["compositor_backward_calls"] = len(spans["compositor_backward"])
+    return state, ms
+
+
+def apos_phase(net, batch, step0: int, expect: dict, n_bwd: int):
+    """One train micro-step under each of ``gauss_dsum``, ``gauss`` and
+    ``gauss_dsum_col`` (``composite.APOS_MODE``, as the tests set it), each
+    with a new optimizer (accumulating 2: its first micro-step moves no
+    parameter), the same weights, batch and generator seed.  ``gauss`` must
+    launch ``reduce_slots`` and ``gauss_dsum_col`` ``transpose_rows`` once
+    per compositing backward (``n_bwd``), the other one never; the losses
+    must agree and every parameter's gradient must lie within 1e-6 of the
+    ``gauss_dsum`` step's after scaling by its max |value|.  The inputs of
+    the first launch of each width and point count are kept for the kernel
+    phases (the shapes the train step gives the kernels).  The three micro-steps run
+    under ``torch.use_deterministic_algorithms``, so that they differ only
+    by the strategy: the gather backwards then add in a fixed order instead
+    of with atomics; the ops that have no such algorithm are listed."""
+    import torch
+
+    from generativedensification_torch.splat import composite
+
+    captured = {}
+    real = {"reduce_slots": composite.reduce_slots,
+            "transpose_rows": composite.transpose_rows}
+
+    def capture(name):
+        def run(x, *a):
+            # (kernel, width, gaussians): the coarse and the fine renders
+            w, n = (x.shape[1], a[0]) if name == "reduce_slots" else x.shape
+            captured.setdefault((name, w, n), (x, *a))
+            return real[name](x, *a)
+        return run
+
+    mode0 = composite.APOS_MODE
+    runs = {}
+    composite.reduce_slots = capture("reduce_slots")
+    composite.transpose_rows = capture("transpose_rows")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        try:
+            _apos_steps(net, batch, step0, expect, n_bwd, runs)
+        finally:
+            torch.use_deterministic_algorithms(False)
+            composite.APOS_MODE = mode0
+            composite.reduce_slots = real["reduce_slots"]
+            composite.transpose_rows = real["transpose_rows"]
+            net.zero_grad(set_to_none=True)
+    nondet = sorted({str(w.message).split(" does not have")[0][:80] for w in caught
+                     if "deterministic" in str(w.message)})
+    print(f"[apos] ops without a deterministic algorithm: {json.dumps(nondet)}")
+
+    ref_loss, ref, _ = runs["gauss_dsum"]
+    gmax = max(float(g.abs().max()) for g in ref.values())
+    recs = {}
+    for mode in ("gauss", "gauss_dsum_col"):
+        loss, grads, launches = runs[mode]
+        worst, worst_at, bitwise = 0.0, None, loss == ref_loss
+        for k, a in ref.items():
+            b = grads[k]
+            bitwise = bitwise and torch.equal(a, b)
+            if k.endswith(ZERO_GRAD):
+                # analytically zero (softmax ignores a constant shift of a
+                # query's logits): rounding noise, negligible in both
+                for g in (a, b):
+                    if float(g.abs().max()) > APOS_GRAD_TOL * gmax:
+                        fail(f"GD_APOS_MODE={mode}: {k} gradient not negligible")
+                continue
+            scale = float(a.abs().max())
+            err = (float((b - a).abs().max()) / scale if scale
+                   else (np.inf if float(b.abs().max()) else 0.0))
+            if err > worst:
+                worst, worst_at = err, k
+        recs[mode] = dict(loss=loss, loss_gauss_dsum=ref_loss,
+                          max_scaled_grad_err=worst, worst_param=worst_at,
+                          bitwise_equal=bitwise, launches=launches,
+                          nondeterministic_ops=nondet)
+        print(f"[apos] {mode}: {json.dumps(recs[mode])}")
+        if abs(loss - ref_loss) > APOS_GRAD_TOL * abs(ref_loss):
+            fail(f"GD_APOS_MODE={mode}: loss {loss} vs gauss_dsum {ref_loss}")
+        if worst > APOS_GRAD_TOL:
+            fail(f"GD_APOS_MODE={mode}: gradients differ from gauss_dsum by "
+                 f"{worst} scaled at {worst_at} > {APOS_GRAD_TOL}")
+    return recs, captured
+
+
+def _apos_steps(net, batch, step0, expect, n_bwd, runs):
+    """The micro-steps of ``apos_phase``, one per strategy."""
+    import torch
+
+    from generativedensification_torch.splat import composite, kernels
+    from generativedensification_torch.train.loss import Losses
+    from generativedensification_torch.train.optim import make_optimizer
+    from generativedensification_torch.train.state import create_train_state
+    from generativedensification_torch.train.step import make_train_step
+
+    for mode in ("gauss_dsum", "gauss", "gauss_dsum_col"):
+        composite.APOS_MODE = mode
+        opt = make_optimizer(net, accumulate=2)
+        st = create_train_state(net, opt, seed=1)
+        st.step = step0
+        step_fn = make_train_step(net, opt, Losses(), with_fine=True)
+        kernels.reset_launch_counts()
+        st, stats = step_fn(st, batch)
+        torch.cuda.synchronize()
+        launches = dict(kernels.launch_counts)
+        want = dict(expect, reduce_slots=n_bwd if mode == "gauss" else 0,
+                    transpose_rows=n_bwd if mode == "gauss_dsum_col" else 0)
+        if launches != want:
+            fail(f"GD_APOS_MODE={mode}: expected launches {want}, got {launches}")
+        check_step_stats(stats, f"GD_APOS_MODE={mode}")
+        grads = {k: (torch.zeros_like(p) if p.grad is None else p.grad).clone()
+                 for k, p in net.named_parameters()}
+        runs[mode] = (float(stats["loss"]), grads, launches)
+        del opt, st
+
+
+def reduction_records(captured: dict, label: str) -> dict:
+    """Kernels #5 and #6 against their plain versions (bitwise) on the
+    inputs the train step gave them, with their times, the time of the one
+    PyTorch call that computes the same function, and the bound.  Each
+    timed call finds the 50 MB L2 cache cold (a 256 MB buffer is read
+    before it), as its bound assumes, and the card busy while the host
+    enqueues it (a ~0.5 ms spin ahead of the start event), so that the
+    interval holds the kernel and not the wrapper's host time."""
+    import torch
+
+    from generativedensification_torch.splat import kernels
+
+    recs = {}
+    dev = next(iter(captured.values()))[0].device
+    scratch = torch.zeros(64 * 2**20, dtype=torch.float32, device=dev)
+
+    def flush():
+        scratch.sum()
+        torch.cuda._sleep(1_000_000)
+
+    for (name, w, n_pts), args in sorted(captured.items()):
+        if name == "reduce_slots":
+            rows, n, d = args
+            run = lambda: kernels.reduce_slots(rows, n, d)
+            plain = lambda: kernels.reduce_slots_plain(rows, n, d)
+            library = lambda: rows.view(n, d, w).sum(1)
+            n_bytes, ops = (n * d * w + n * w) * 4, n * (d - 1) * w
+            shape = dict(n=n, d=d, w=w)
+        else:
+            (cols,) = args
+            run = lambda: kernels.transpose_rows(cols)
+            plain = lambda: kernels.transpose_rows_plain(cols)
+            library = lambda: cols.t().contiguous()
+            n_bytes, ops = 2 * cols.numel() * 4, 0
+            shape = dict(w=w, M=cols.shape[1])
+        out, ref = run(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            fail(f"{name} {label} w={w}: kernel differs from its plain version "
+                 f"(max |diff| {float((out - ref).abs().max())})")
+        rec = dict(kernel=name, scene=label, **shape, bitwise_equal=True,
+                   max_abs_err=float((out - ref).abs().max()),
+                   ms=cuda_ms(run, reps=25, before=flush),
+                   plain_ms=cuda_ms(plain, reps=21, before=flush),
+                   library_ms=cuda_ms(library, reps=25, before=flush),
+                   **bound(n_bytes, ops))
+        print(f"[kernel] {json.dumps(rec)}")
+        recs[f"{name}_{label}_w{w}_n{n_pts}"] = rec
+    return recs
+
+
+def train_phase(renderer: str, batch, expect: dict, device=None) -> dict:
+    """The full-width f32 train micro-step of one renderer: the training
+    configuration with its warmup budgets, seeded weights, 2 warm-up and
+    4 timed micro-steps (2 optimizer updates), a stage breakdown of one
+    more, the profiler's device-busy share of one more, then the
+    GD_APOS_MODE micro-steps and kernels #5 / #6 on their inputs.  The
+    2DGS state starts past micro-step 1000 so that its distortion and
+    normal terms are active."""
+    import torch
+
+    from generativedensification_torch.models.network import NetworkConfig
+    from generativedensification_torch.train.loss import Losses
+    from generativedensification_torch.train.step import make_train_step
+
+    cfg = train_config(renderer)
+    ncfg = NetworkConfig.from_config(cfg)
+    step0 = 1001 if renderer == "2dgs" else 0
+    net, opt, state = make_trainer(ncfg, cfg.train, step0, device=device)
+    step_fn = make_train_step(net, opt, Losses(), with_fine=True)
+    state, stats, times, launches, peak = timed_train_steps(
+        step_fn, state, batch, expect)
+    state, split = train_breakdown(net, opt, state, batch)
+    busy = device_busy(lambda: step_fn(state, batch))
+    step_ms = statistics.median(times)
+    stats = {k: float(v) for k, v in stats.items()}
+    rec = dict(renderer=renderer, step_ms=step_ms, step_runs_ms=times,
+               samples_per_s=batch["tar_rgb"].shape[0] / step_ms * 1e3,
+               launches=launches, peak_bytes=peak, stats=stats,
+               overflow=stats["overflow"], optimizer_updates=opt.count,
+               micro_steps=state.step - step0, breakdown_ms=split,
+               busy_ms=busy["busy_ms"], busy_wall_ms=busy["wall_ms"],
+               busy_top=busy["top"], budgets=WARMUP_BUDGETS[renderer],
+               mask_pool=ncfg.mask_pool, k_num=ncfg.k_num,
+               drop_path=ncfg.drop_path, shuffle_orders=ncfg.shuffle_orders)
+    print(f"[train {renderer}] micro-step ms median {step_ms:.2f} (runs "
+          f"{[round(t, 2) for t in times]}); {rec['samples_per_s']:.3f} samples/s; "
+          f"launches {launches}; overflow {stats['overflow']:.0f}; stats "
+          f"{json.dumps(stats)}; peak allocated {peak / 2**30:.2f} GiB")
+    print(f"[breakdown] {renderer} train micro-step, device ms by stage: "
+          f"{json.dumps(split)}")
+    print(f"[profiler] {renderer} train micro-step wall {busy['wall_ms']:.2f} ms, "
+          f"kernels busy {busy['busy_ms']:.2f} ms "
+          f"({busy['busy_ms'] / busy['wall_ms']:.1%}); top: {json.dumps(busy['top'])}")
+    del opt, state, step_fn
+    apos, captured = apos_phase(net, batch, step0, expect, 2 * V_TOTAL + N_VIEWS)
+    reductions = reduction_records(captured, renderer)
+    del net, captured
+    torch.cuda.empty_cache()
+    return dict(rec, apos=apos, reductions=reductions)
 
 
 def fine_config(**over):
@@ -775,7 +1215,7 @@ def main() -> int:
                                      composite_bwd=N_VIEWS))
         check_outputs(out_f, 1, V_TOTAL, HW, HW, n_coarse, n_fine)
         split_f = forward_breakdown(net, batch, True)
-        busy = device_busy(net, batch, True)
+        busy = device_busy(lambda: net(batch, with_fine=True))
     coarse_ms, fine_ms = statistics.median(times_c), statistics.median(times_f)
     ov_coarse = int(out_c["overflow"].sum())
     ov_serving = int(out_f["overflow"].sum())
@@ -818,7 +1258,7 @@ def main() -> int:
             net2, batch, True, expect(surfel_fwd=2 * V_TOTAL, surfel_bwd=N_VIEWS))
         check_outputs(out_s, 1, V_TOTAL, HW, HW, n_coarse, n_fine, surfels=True)
         split_s = forward_breakdown(net2, batch, True)
-        busy_s = device_busy(net2, batch, True)
+        busy_s = device_busy(lambda: net2(batch, with_fine=True))
     surfel_ms = statistics.median(times_s)
     ov_surfel = int(out_s["overflow"].sum())
     print(f"[serving 2dgs] forward ms median {surfel_ms:.2f} (runs "
@@ -834,7 +1274,18 @@ def main() -> int:
     del net2, out2, out_s
     torch.cuda.empty_cache()
 
-    # -- 8. the evaluation entry point on 2 synthetic scenes, each renderer
+    # -- 8. the f32 train step at full width, each renderer: 16 forward
+    # compositor launches, 4 selonly + 16 backward ones (3DGS noabs, 2DGS
+    # full) per micro-step; then GD_APOS_MODE and kernels #5 / #6
+    n_bwd = 2 * V_TOTAL + N_VIEWS
+    train = {
+        "3dgs": train_phase("3dgs", batch, expect(composite_fwd=2 * V_TOTAL,
+                                                  composite_bwd=n_bwd)),
+        "2dgs": train_phase("2dgs", batch, expect(surfel_fwd=2 * V_TOTAL,
+                                                  surfel_bwd=n_bwd)),
+    }
+
+    # -- 9. the evaluation entry point on 2 synthetic scenes, each renderer
     evals = {}
     for renderer in ("3dgs", "2dgs"):
         t0 = time.perf_counter()
@@ -849,7 +1300,7 @@ def main() -> int:
               f"{json.dumps(means)}")
         evals[renderer] = {"seconds": eval_s, "mean": means}
 
-    # -- 9. the tiny configuration, card vs CPU, each renderer
+    # -- 10. the tiny configuration, card vs CPU, each renderer
     with torch.inference_mode():
         # seeds whose selection margins are >= 100x the score tolerance on
         # the card (35: 148x with the 3DGS renderer; 28: 451x with 2DGS)
@@ -910,6 +1361,26 @@ def main() -> int:
         "bound_by": surfel_bwd_recs["selonly"]["bound_by"],
         "library_ms": None,
     }]
+    for name, source, replaces, mode in (
+            ("reduce_slots", "reduce_slots.cu", "pallas_kernels.py:505", "gauss"),
+            ("transpose_rows", "transpose_rows.cu", "pallas_kernels.py:467",
+             "gauss_dsum_col")):
+        # the 3DGS noabs width at the coarse Gaussians: the train step's
+        # largest reduction
+        r = train["3dgs"]["reductions"][f"{name}_3dgs_w10_n{n_coarse}"]
+        recs.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"generativedensification_torch/csrc/{source}",
+            "replaces": f"generativedensification_tpu/splat/{replaces}",
+            "launches": train["3dgs"]["apos"][mode]["launches"][name],
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+        })
     print(json.dumps({
         "coarse": {"forward_ms": coarse_ms, "forward_runs_ms": times_c,
                    "launches": launches_c, "breakdown_ms": split_c,
@@ -924,7 +1395,7 @@ def main() -> int:
                          "busy_ms": busy_s["busy_ms"],
                          "busy_wall_ms": busy_s["wall_ms"], "overflow": ov_surfel,
                          "peak_bytes": peak_s},
-        "eval": evals, "tiny": tiny, "pyyaml": has_yaml,
+        "train": train, "eval": evals, "tiny": tiny, "pyyaml": has_yaml,
         "scenes": [bench_rec, model_rec], "composite_bwd": bwd_recs,
         "surfel_scenes": [surfel_small_rec, surfel_rec],
         "surfel_bwd": surfel_bwd_recs}))

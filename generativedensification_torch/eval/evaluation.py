@@ -10,7 +10,7 @@ per-scene JSON schema ``{"mean": ..., "scenes": {scene: {...}}}``.
 
 runs on the card; ``tpu.renderer=2dgs`` serves through the 2DGS surfel
 renderer.  The port's models compute in f32 (the bf16 compute
-policy arrives with ROADMAP slice 4), so the command line sets
+policy arrives with ROADMAP slice 5), so the command line sets
 ``tpu.compute_dtype=float32`` ahead of the given overrides; the config
 default ``bfloat16`` of the TPU group would raise.  ``infer.ckpt_path``
 None means seeded weights (``infer.seed``, default 0).  Not ported yet,
@@ -39,9 +39,8 @@ def _check_supported(icfg) -> None:
     ft_cfg = icfg.get("finetuning", None)
     if ft_cfg and ft_cfg.get("with_ft", False):
         raise NotImplementedError(
-            "infer.finetuning.with_ft: per-scene finetuning needs the "
-            "rasterizer's autograd backward; it arrives with ROADMAP queue 1 "
-            "(eval and tools), after slice 4")
+            "infer.finetuning.with_ft: per-scene finetuning arrives with "
+            "ROADMAP queue 1 (eval and tools)")
     if int(icfg.get("video_frames", 0)) > 0:
         raise NotImplementedError(
             "infer.video_frames: the orbit video arrives with ROADMAP queue 1 "
@@ -55,7 +54,7 @@ def _check_supported(icfg) -> None:
     if icfg.ckpt_path not in (None, "None"):
         raise NotImplementedError(
             f"infer.ckpt_path={icfg.ckpt_path!r}: the port's checkpoints "
-            "arrive with ROADMAP slice 4 (train state); None runs seeded "
+            "arrive with ROADMAP slice 5 (checkpoints); None runs seeded "
             "weights")
 
 
@@ -81,7 +80,9 @@ def main(cfg: ConfigNode, device=None) -> dict:
     for i in range(n_scenes):
         sample_np = collate([dataset[i]])
         batch = to_device_batch(sample_np, dev)
-        with torch.inference_mode():
+        # no_grad, not inference_mode: share_selection=False differentiates
+        # a render inside the forward
+        with torch.no_grad():
             out = net(batch, with_fine=True)
 
         B, V, H, W, _ = batch["tar_rgb"].shape

@@ -12,7 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .init import init_module_, normal_, xavier_uniform_
+from .init import init_module_, normal_, remat_call, xavier_uniform_
 
 LN_EPS = 1e-6
 
@@ -198,7 +198,9 @@ class VolTransformer(nn.Module):
         block_sizes = [R // n for n in self.n_groups]
         for i, layer in enumerate(self.layers):
             gi = i % len(self.n_groups)
-            x = layer(x, conds[gi], self.n_groups[gi], block_sizes[gi])
+            # recomputed in the backward
+            x = remat_call(layer, x, conds[gi], self.n_groups[gi],
+                           block_sizes[gi])
         x = _channels_last_conv3d(self.deconv, self.norm(x))
         return x.reshape(B, -1, self.out_dim)
 

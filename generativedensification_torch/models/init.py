@@ -52,3 +52,16 @@ def init_module_(module: nn.Module, gen: torch.Generator) -> None:
             continue
         if m.bias is not None:
             nn.init.zeros_(m.bias)
+
+
+def remat_call(fn, *args):
+    """``fn(*args)``; while autograd records, under activation
+    checkpointing (``torch.utils.checkpoint``, non-reentrant), as the JAX
+    modules' ``nn.remat``: the block's activations are recomputed in the
+    backward instead of kept. Only for blocks that draw no random numbers,
+    which a recompute would draw again."""
+    if torch.is_grad_enabled():
+        from torch.utils.checkpoint import checkpoint
+
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)

@@ -1,18 +1,29 @@
-"""The Generative Densification network, PyTorch: the serving forward.
+"""The Generative Densification network, PyTorch: serving and training.
 
 Port of ``generativedensification_tpu/models/network.py``
-``Network.__call__(batch, with_fine=...)`` with ``deterministic=True``:
+``Network.__call__(batch, with_fine=..., deterministic=...)``:
 
   * coarse: DINO ViT tokens, Plücker-ray modulation, a feature volume
     lifted from the token maps, the group-attention volume transformer,
     the coarse Gaussian head on the (2R)³ grid, every view rendered through
     the 3DGS rasterizer (one forward compositor launch per view);
-  * fine (``with_fine=True``): the source views' coarse renders also give
-    the AbsGS selection gradients (fused selection, one ``selonly`` backward
-    compositor launch per source view), the static opacity pool, per-view
-    point features and the fine head, top-k selection, the densification
-    decoder stages, the union of the decoder leaves with the unselected
-    pool remainder, and every view rendered again from that union.
+  * fine (``with_fine=True``): the AbsGS selection gradients of the source
+    views (fused selection: the source views' coarse renders also give them,
+    one ``selonly`` backward compositor launch per source view; or, with
+    ``share_selection=False``, the isolated closure: ``torch.autograd.grad``
+    through a second 3DGS render of the source views over zero
+    ``screen_offset`` / ``screen_abs`` inputs), the static opacity pool,
+    per-view point features and the fine head, top-k selection, the
+    densification decoder stages, the union of the decoder leaves with the
+    unselected pool remainder, and every view rendered again from that
+    union.
+
+Everything is differentiable through autograd (the compositors' backwards
+are the backward kernels).  ``module.train()`` is the JAX
+``deterministic=False``: the densifier's dropout, drop-path and order
+shuffling draw from the ``generator`` given to ``forward``.  The ViT and
+volume-transformer blocks are recomputed in the backward (``remat``, always
+on, as in the JAX modules).
 
 ``renderer="2dgs"`` (``tpu.renderer``) sends every render, coarse and fine,
 through the surfel rasterizer (``splat/surfel.py``: one surfel forward
@@ -20,10 +31,8 @@ launch per view, one ``selonly`` surfel backward per source view for the
 fused selection) and adds the coarse ``rend_dist``, ``rend_normal`` and
 ``depth_normal`` maps; ``depth`` is then the 2DGS surface depth.
 
-Not ported yet, each raising ``NotImplementedError`` with the ROADMAP item
-that brings it: ``share_selection=False`` (the isolated selection closure
-needs autograd through the rasterizer — ROADMAP slice 4) and the bf16
-compute policy (ROADMAP slice 4).
+Not ported yet: the bf16 compute policy (``compute_dtype="bfloat16"``
+raises, ROADMAP slice 5).
 """
 
 from __future__ import annotations
@@ -74,10 +83,9 @@ from .vit import DinoEncoder
 
 @dataclasses.dataclass(frozen=True)
 class NetworkConfig:
-    """Static hyperparameters (the JAX ``NetworkConfig`` fields the serving
-    forward reads; the TPU data-plane knobs — backend, vmap/remat of
-    renders, the XLA chunk — have no meaning here, and the train-time ones,
-    drop-path and order shuffling, arrive with ROADMAP slice 4)."""
+    """Static hyperparameters (the JAX ``NetworkConfig`` fields; its TPU
+    data-plane knobs — backend, vmap / remat of renders, the XLA chunk —
+    have no meaning here: renders keep their few small residuals)."""
 
     n_views: int = 4
     encoder_backbone: str = "vit_base_patch16_224.dino"
@@ -103,11 +111,16 @@ class NetworkConfig:
     mlp_ratio: float = 4.0
     qkv_bias: bool = True
     qk_scale: float | None = None
+    attn_drop: float = 0.0
+    proj_drop: float = 0.0
+    drop_path: float = 0.3
     pre_norm: bool = True
+    shuffle_orders: bool = True
     enable_ada_lnnorm: bool = True
     upscale_factor: tuple = (2, 4)
     n_frequencies: int = 15
     enable_absolute_pe: bool = False
+    enable_upscale_drop_path: bool = True
     use_mask: bool = True
     temperature: float = 1.0
     non_leaf_ratio: tuple = (0.8,)
@@ -116,7 +129,7 @@ class NetworkConfig:
     pdnorm_ln: bool = False
     pdnorm_conditions: tuple = ("ScanNet", "S3DIS", "Structured3D")
     mask_pool: int = 49152        # static stand-in for the opacity mask
-    share_selection: bool = True  # fused selection (False: slice 4)
+    share_selection: bool = True  # fused selection (False: isolated closure)
     # rasterizer static budgets
     tile_size: int = 32
     max_tiles: int = 4
@@ -157,11 +170,16 @@ class NetworkConfig:
             mlp_ratio=m.mlp_ratio,
             qkv_bias=m.qkv_bias,
             qk_scale=m.qk_scale,
+            attn_drop=m.attn_drop,
+            proj_drop=m.proj_drop,
+            drop_path=m.drop_path,
             pre_norm=m.pre_norm,
+            shuffle_orders=m.shuffle_orders,
             enable_ada_lnnorm=m.enable_ada_lnnorm,
             upscale_factor=tuple(m.upscale_factor),
             n_frequencies=m.n_frequencies,
             enable_absolute_pe=m.enable_absolute_pe,
+            enable_upscale_drop_path=m.enable_upscale_drop_path,
             use_mask=m.use_mask,
             temperature=m.temperature,
             non_leaf_ratio=tuple(m.non_leaf_ratio),
@@ -233,16 +251,24 @@ class DensifierStage(nn.Module):
         out_ch = cfg.dec_channels[s] if self.last else cfg.dec_channels[s + 1]
         ratio = 1.0 if (self.last or not cfg.use_mask) else cfg.non_leaf_ratio[s]
         C = cfg.dec_channels[s]
+        # linearly spaced drop-path rates over all blocks, reversed
+        total = sum(cfg.dec_depths)
+        dpr = [cfg.drop_path * i / max(total - 1, 1) for i in range(total)][::-1]
+        off = sum(cfg.dec_depths[:s])
+        dpr_s = dpr[off: off + cfg.dec_depths[s]]
         self.blocks = nn.ModuleList(
             Block(C, cfg.dec_num_head[s], cfg.dec_patch_size[s], cfg.mlp_ratio,
                   cfg.qkv_bias, cfg.qk_scale, cfg.pre_norm,
-                  order_index=i % len(cfg.order), pdnorm_n=cfg.pdnorm_n)
+                  order_index=i % len(cfg.order), pdnorm_n=cfg.pdnorm_n,
+                  attn_drop=cfg.attn_drop, proj_drop=cfg.proj_drop,
+                  drop_path=dpr_s[i])
             for i in range(cfg.dec_depths[s])
         )
         self.up = UpscaleModule(
             C, out_ch, cfg.upscale_factor[s], cfg.n_frequencies,
             cfg.enable_absolute_pe, carry_attribute=cfg.enable_residual_attribute,
-            pdnorm_n=cfg.pdnorm_n)
+            pdnorm_n=cfg.pdnorm_n,
+            drop_path=dpr_s[-1] if cfg.enable_upscale_drop_path else 0.0)
         self.head = GaussianModule(out_ch, cfg.sh_degree)
         gate = MaskResModule if cfg.enable_residual_attribute else MaskModule
         self.mask = gate(out_ch, cfg.temperature, ratio, cfg.mask_sampling_type)
@@ -257,15 +283,22 @@ class DensifierStage(nn.Module):
                 nn.init.ones_(m.weight)
                 nn.init.zeros_(m.bias)
 
-    def forward(self, ps: PointSet):
+    def forward(self, ps: PointSet, gen: torch.Generator | None = None):
         cfg, s = self.cfg, self.stage
         if s == 0 and cfg.enable_ada_lnnorm:
             ps = global_pooling(ps)
-        ps = serialize_pointset(ps, cfg.order)
+        shuffle = None
+        if cfg.shuffle_orders and self.training:
+            if gen is None:
+                raise ValueError("order shuffling in training needs the step's "
+                                 "torch.Generator (pass generator=...)")
+            shuffle = torch.randperm(len(cfg.order), generator=gen,
+                                     device=gen.device).to(ps.coord.device)
+        ps = serialize_pointset(ps, cfg.order, shuffle=shuffle)
         ps = compute_neighbor_idx(ps)
         for block in self.blocks:
-            ps = block(ps)
-        ps = self.up(ps)
+            ps = block(ps, gen)
+        ps = self.up(ps, gen)
 
         if cfg.enable_residual_attribute:
             # head first, then mask
@@ -302,7 +335,9 @@ class Network(nn.Module):
     ``device=None`` runs on the card (and raises without one); the CPU
     takes only an explicit ``device="cpu"``.  Weights are drawn from a
     ``torch.Generator`` seeded with ``seed`` (Flax-default distributions);
-    ``load_flax_params`` replaces them with a JAX parameter tree.
+    ``load_flax_params`` replaces them with a JAX parameter tree.  A new
+    network is in evaluation mode (the JAX ``deterministic=True`` default);
+    ``train()`` turns on dropout, drop-path and order shuffling.
     """
 
     def __init__(self, cfg: NetworkConfig, device=None, seed: int = 0):
@@ -310,7 +345,8 @@ class Network(nn.Module):
         if cfg.compute_dtype != "float32":
             raise NotImplementedError(
                 f"compute_dtype={cfg.compute_dtype!r}: the bf16 compute policy "
-                "arrives with ROADMAP slice 4 (train step)")
+                "arrives with ROADMAP slice 5 (with the data loaders and the "
+                "train CLI)")
         self.cfg = cfg
         dev = resolve_device(device)
         self.img_encoder = DinoEncoder(cfg.encoder_backbone)
@@ -343,6 +379,7 @@ class Network(nn.Module):
             persistent=False)
         self.reset_parameters(torch.Generator().manual_seed(seed))
         self.to(dev)
+        self.eval()
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         self.img_encoder.reset_parameters(gen)
@@ -395,13 +432,17 @@ class Network(nn.Module):
         ]
 
     def _render_views(self, cams, bgs, centers, shs, opacity_raw, scaling_raw,
-                      rotation_raw, valid, sel_gt=None) -> dict:
+                      rotation_raw, valid, sel_gt=None, screen=None) -> dict:
         """Render one sample's views (``cams`` with (V,) leading dims) ->
         per-view outputs stacked over views.
 
         ``sel_gt`` (V_s, H, W, 3): fused AbsGS selection — the first V_s
         views (the source views) also give ``sel_abs`` (V_s, N, 2) against
-        their ground truth, from the same forward (no second render)."""
+        their ground truth, from the same forward (no second render).
+        ``screen`` (screen_offset, screen_abs): the rasterizer's gradient
+        hooks; with them every renderer goes through the 3DGS rasterizer,
+        whose backward gives the AbsGS channels (the JAX network does the
+        same for the isolated selection closure)."""
         cfg = self.cfg
         opacity = torch.sigmoid(opacity_raw.reshape(-1))
         opacity = torch.where(valid, opacity, torch.zeros_like(opacity))
@@ -409,15 +450,17 @@ class Network(nn.Module):
         max_pairs = (int(centers.shape[0] * cfg.pair_budget)
                      if cfg.pair_budget > 0 else None)
         n_sel = 0 if sel_gt is None else sel_gt.shape[0]
-        if cfg.renderer == "2dgs":
+        if cfg.renderer == "2dgs" and screen is None:
             return self._render_views_2dgs(cams, bgs, centers, shs, opacity,
                                            scales, rotation_raw, sel_gt)
+        screen_offset, screen_abs = (None, None) if screen is None else screen
         outs = [
             rasterize(centers, shs, opacity, scales, rotation_raw, cams[j],
                       bgs[j], cfg.sh_degree, tile_size=cfg.tile_size,
                       max_tiles=cfg.max_tiles, max_per_tile=cfg.max_per_tile,
                       max_pairs=max_pairs, enum_tiles=cfg.enum_tiles or None,
-                      sel_gt=sel_gt[j] if j < n_sel else None)
+                      sel_gt=sel_gt[j] if j < n_sel else None,
+                      screen_offset=screen_offset, screen_abs=screen_abs)
             for j in range(bgs.shape[0])
         ]
         res = {k: torch.stack([getattr(o, k) for o in outs])
@@ -469,12 +512,40 @@ class Network(nn.Module):
 
     # -------------------------------------------------------------- forward
 
-    def forward(self, batch, with_fine: bool = False):
+    def _isolated_selection(self, batch, cams_all, gs, valid):
+        """``share_selection=False``: the reference's selection closure.
+        Each sample's source views are rendered again through the 3DGS
+        rasterizer from detached attributes, and ``torch.autograd.grad`` of
+        the image MSE over the V-view stack gives the AbsGS gradient of the
+        zero ``screen_abs`` input (the backward kernel in ``full`` mode).
+        Returns the (B, N) scores |dL/d screen_abs|, without gradient."""
+        if torch.is_inference_mode_enabled():
+            raise RuntimeError("share_selection=False differentiates a render: "
+                               "run the forward under torch.no_grad(), not "
+                               "torch.inference_mode()")
+        V = self.cfg.n_views
+        gt = batch["tar_rgb"][:, :V]
+        scores = []
+        for b in range(len(cams_all)):
+            centers, shs, opa, scaling, rot = (g[b].detach() for g in gs)
+            zeros = lambda: torch.zeros((centers.shape[0], 2), device=centers.device,
+                                        requires_grad=True)
+            screen = (zeros(), zeros())
+            with torch.enable_grad():
+                out = self._render_views(cams_all[b][:V], batch["bg_color"][b, :V],
+                                         centers, shs, opa, scaling, rot, valid[b],
+                                         screen=screen)
+                loss = ((out["image"] - gt[b]) ** 2).mean()
+                g_abs = torch.autograd.grad(loss, screen)[1]
+            scores.append(torch.linalg.vector_norm(g_abs, dim=-1))
+        return torch.stack(scores)
+
+    def forward(self, batch, with_fine: bool = False,
+                generator: torch.Generator | None = None):
+        """The JAX ``Network.__call__``; ``self.training`` is its
+        ``deterministic=False``, and the densifier's random draws come from
+        ``generator`` (on the network's device)."""
         cfg = self.cfg
-        if with_fine and not cfg.share_selection:
-            raise NotImplementedError(
-                "share_selection=False: the isolated selection closure needs "
-                "autograd through the rasterizer, ROADMAP slice 4 (train step)")
         B, V_total, H, W, _ = batch["tar_rgb"].shape
         V = cfg.n_views
 
@@ -515,13 +586,14 @@ class Network(nn.Module):
         N = centers.shape[1]
         all_valid = torch.ones((B, N), dtype=torch.bool, device=centers.device)
 
-        # coarse renders, all V_total views; with the fine stage the source
-        # views' renders also give the AbsGS selection gradients (fused
-        # selection: one selonly backward per source view, no re-render)
+        # coarse renders, all V_total views; with the fine stage and fused
+        # selection the source views' renders also give the AbsGS selection
+        # gradients (one selonly backward per source view, no re-render)
         cams_all = self._cameras_all(batch)
-        coarse = self._render_all(
-            batch, cams_all, (centers, shs_c, opacity_c, scaling_c, rotation_c),
-            all_valid, batch["tar_rgb"][:, :V] if with_fine else None)
+        gs_coarse = (centers, shs_c, opacity_c, scaling_c, rotation_c)
+        share_sel = with_fine and cfg.share_selection
+        coarse = self._render_all(batch, cams_all, gs_coarse, all_valid,
+                                  batch["tar_rgb"][:, :V] if share_sel else None)
         outputs = {
             "image": _cat_views(coarse["image"]),
             "depth": _cat_views(coarse["depth"])[..., None],
@@ -541,10 +613,15 @@ class Network(nn.Module):
         # ================= fine stage =================
         opacity_act = torch.sigmoid(opacity_c[..., 0])
         opacity_ok = opacity_act > 0.005                          # (B, N)
-        # per-view abs grads sum across views; each view's cotangent is the
-        # per-view MSE's, while the reference differentiates one mean over
-        # the V-view concat: divide by V so the scores match it
-        sel_score = torch.linalg.vector_norm(coarse["sel_abs"].sum(1), dim=-1) / V
+        if share_sel:
+            # per-view abs grads sum across views; each view's cotangent is
+            # the per-view MSE's, while the reference differentiates one mean
+            # over the V-view concat: divide by V so the scores match it
+            sel_score = torch.linalg.vector_norm(coarse["sel_abs"].sum(1),
+                                                 dim=-1) / V
+        else:
+            sel_score = self._isolated_selection(batch, cams_all, gs_coarse,
+                                                 all_valid)
 
         pool_idx = static_opacity_pool(opacity_act, cfg.mask_pool)
         M = pool_idx.shape[1]
@@ -586,7 +663,7 @@ class Network(nn.Module):
         # densification decoder levels
         leaves = []
         for stage in self.stages:
-            ps, leaf = stage(ps)
+            ps, leaf = stage(ps, generator)
             leaves.append(leaf)
 
         # union of the decoder leaves

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .init import init_module_, normal_
+from .init import init_module_, normal_, remat_call
 
 DINO_MEAN = (0.485, 0.456, 0.406)
 DINO_STD = (0.229, 0.224, 0.225)
@@ -143,7 +143,7 @@ class VisionTransformer(nn.Module):
         cls_tok = (self.cls_token + cls_pos).expand(B, 1, self.dim)
         x = torch.cat([cls_tok, x], dim=1)
         for blk in self.blocks:
-            x = blk(x)
+            x = remat_call(blk, x)  # recomputed in the backward
         return self.norm(x)
 
 

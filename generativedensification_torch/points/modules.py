@@ -1,8 +1,11 @@
 """Modules of the point-serialization densification decoder, PyTorch.
 
 Port of ``generativedensification_tpu/points/modules.py`` over the dense
-batched :class:`~.structure.PointSet`, for the serving path (no dropout or
-drop-path: the train-time forms arrive with ROADMAP slice 4):
+batched :class:`~.structure.PointSet`.  In training (``module.train()``) the
+attention / MLP dropout and the per-sample drop-path of the residual
+branches draw their masks from the ``torch.Generator`` passed down from the
+train step (``keep_mask``), never from the global RNG; in evaluation they
+are the identity:
 
   * ``WindowAttention`` — windowed attention over one serialized order;
     every point budget is a multiple of the patch size, so it is a plain
@@ -39,6 +42,37 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+def keep_mask(shape, keep: float, gen: torch.Generator | None,
+              device) -> torch.Tensor:
+    """Bernoulli(keep) bool mask drawn from ``gen`` (uniform < keep, as
+    ``jax.random.bernoulli`` draws it)."""
+    if gen is None:
+        raise ValueError("a random draw in training needs the step's "
+                         "torch.Generator (pass generator=...)")
+    return torch.rand(shape, generator=gen, device=device) < keep
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            gen: torch.Generator | None) -> torch.Tensor:
+    """Flax ``nn.Dropout``: x / keep where kept, else 0."""
+    if rate <= 0.0 or not training:
+        return x
+    keep = 1.0 - rate
+    mask = keep_mask(x.shape, keep, gen, x.device)
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def drop_path(x: torch.Tensor, rate: float, training: bool,
+              gen: torch.Generator | None) -> torch.Tensor:
+    """Per-sample stochastic depth on a residual branch (the JAX
+    ``DropPath``): one Bernoulli(1 - rate) draw per sample."""
+    if rate <= 0.0 or not training:
+        return x
+    keep = 1.0 - rate
+    mask = keep_mask((x.shape[0],) + (1,) * (x.dim() - 1), keep, gen, x.device)
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 class PDNorm(nn.Module):
     """Prompt-driven normalization: a per-condition affine over the shared
     parameter-free LayerNorm statistics (decouple=True, adaptive=False)."""
@@ -57,15 +91,17 @@ def _norm(module: PDNorm | None, x: torch.Tensor, condition: int) -> torch.Tenso
 
 
 class PointMLP(nn.Module):
-    """fc1 - gelu - fc2."""
+    """fc1 - gelu - dropout - fc2 - dropout."""
 
-    def __init__(self, in_dim: int, hidden: int, out: int):
+    def __init__(self, in_dim: int, hidden: int, out: int, drop: float = 0.0):
         super().__init__()
         self.fc1 = nn.Linear(in_dim, hidden)
         self.fc2 = nn.Linear(hidden, out)
+        self.drop = drop
 
-    def forward(self, x):
-        return self.fc2(gelu(self.fc1(x)))
+    def forward(self, x, gen=None):
+        x = dropout(gelu(self.fc1(x)), self.drop, self.training, gen)
+        return dropout(self.fc2(x), self.drop, self.training, gen)
 
 
 class WindowAttention(nn.Module):
@@ -73,8 +109,10 @@ class WindowAttention(nn.Module):
 
     def __init__(self, channels: int, num_heads: int, patch_size: int,
                  qkv_bias: bool = True, qk_scale: float | None = None,
-                 order_index: int = 0):
+                 order_index: int = 0, attn_drop: float = 0.0,
+                 proj_drop: float = 0.0):
         super().__init__()
+        self.attn_drop, self.proj_drop = attn_drop, proj_drop
         self.num_heads = num_heads
         self.patch_size = patch_size
         self.qk_scale = qk_scale
@@ -82,7 +120,7 @@ class WindowAttention(nn.Module):
         self.qkv = nn.Linear(channels, 3 * channels, bias=qkv_bias)
         self.proj = nn.Linear(channels, channels)
 
-    def forward(self, ps: PointSet) -> torch.Tensor:
+    def forward(self, ps: PointSet, gen=None) -> torch.Tensor:
         B, N, C = ps.feat.shape
         H, K = self.num_heads, self.patch_size
         D = C // H
@@ -101,15 +139,20 @@ class WindowAttention(nn.Module):
         attn = torch.where(kmask.reshape(B, nw, 1, 1, K), attn,
                            torch.full_like(attn, NEG_INF))
         attn = torch.softmax(attn, dim=-1)
+        attn = dropout(attn, self.attn_drop, self.training, gen)
         out = torch.matmul(attn, v)
         out = out.permute(0, 1, 3, 2, 4).reshape(B, N, C)
-        return self.proj(gather_rows(out, inverse))
+        out = self.proj(gather_rows(out, inverse))
+        return dropout(out, self.proj_drop, self.training, gen)
 
 
 def neighbor_conv27(feat: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``y[b,n] = Σ_o feat[b, nbr[b,n,o]] @ w[o]`` (a miss, ``nbr < 0``,
     contributes zero): one gather of the 27 neighbor rows and one
-    (N, 27·C) x (27·C, D) product.  Forward only."""
+    (N, 27·C) x (27·C, D) product.  Autograd differentiates the gather: the
+    feature gradient of a point sums its queries' cotangents, which is the
+    JAX package's tap-reversed custom backward (only voxel representatives
+    are ever gathered, so co-voxel duplicates get none in both)."""
     B, N, C = feat.shape
     g = gather_rows(feat, nbr.clamp(min=0).reshape(B, N * 27)).reshape(B, N, 27, C)
     g = torch.where((nbr >= 0)[..., None], g, torch.zeros_like(g))
@@ -134,36 +177,41 @@ class NeighborConvCPE(nn.Module):
 
 class Block(nn.Module):
     """PTv3 block: CPE residual, pre-norm attention residual, pre-norm MLP
-    residual."""
+    residual, the last two under drop-path (two draws) in training."""
 
     def __init__(self, channels: int, num_heads: int, patch_size: int = 48,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  qk_scale: float | None = None, pre_norm: bool = True,
-                 order_index: int = 0, pdnorm_n: int = 0):
+                 order_index: int = 0, pdnorm_n: int = 0,
+                 attn_drop: float = 0.0, proj_drop: float = 0.0,
+                 drop_path: float = 0.0):
         super().__init__()
         self.pre_norm = pre_norm
+        self.drop_path = drop_path
         self.cpe = NeighborConvCPE(channels, pdnorm_n)
         self.attn = WindowAttention(channels, num_heads, patch_size, qkv_bias,
-                                    qk_scale, order_index)
-        self.mlp = PointMLP(channels, int(channels * mlp_ratio), channels)
+                                    qk_scale, order_index, attn_drop, proj_drop)
+        self.mlp = PointMLP(channels, int(channels * mlp_ratio), channels,
+                            proj_drop)
         self.norm1 = PDNorm(channels, pdnorm_n) if pdnorm_n else None
         self.norm2 = PDNorm(channels, pdnorm_n) if pdnorm_n else None
 
-    def forward(self, ps: PointSet) -> PointSet:
+    def forward(self, ps: PointSet, gen=None) -> PointSet:
         norm1 = lambda x: _norm(self.norm1, x, ps.condition)
         norm2 = lambda x: _norm(self.norm2, x, ps.condition)
+        dp = lambda x: drop_path(x, self.drop_path, self.training, gen)
         feat = ps.feat
         feat = feat + self.cpe(ps.replace(feat=feat))
 
         shortcut = feat
         x = norm1(feat) if self.pre_norm else feat
-        feat = shortcut + self.attn(ps.replace(feat=x))
+        feat = shortcut + dp(self.attn(ps.replace(feat=x), gen))
         if not self.pre_norm:
             feat = norm1(feat)
 
         shortcut = feat
         x = norm2(feat) if self.pre_norm else feat
-        feat = shortcut + self.mlp(x)
+        feat = shortcut + dp(self.mlp(x, gen))
         if not self.pre_norm:
             feat = norm2(feat)
         return ps.replace(feat=feat)
@@ -183,13 +231,15 @@ def positional_encoding(freqs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 class UpscaleModule(nn.Module):
     """Learned S×N upsampling: each parent emits S children at
     ``coord + 0.5·grid_size·tanh(delta_x)`` with features
-    ``skip(parent) + delta_f([PE(dx), parent])``."""
+    ``skip(parent) + drop_path(delta_f([PE(dx), parent]))``."""
 
     def __init__(self, in_channels: int, out_channels: int, upscale_factor: int,
                  n_frequencies: int = 15, enable_absolute_pe: bool = False,
-                 carry_attribute: bool = False, pdnorm_n: int = 0):
+                 carry_attribute: bool = False, pdnorm_n: int = 0,
+                 drop_path: float = 0.0):
         super().__init__()
         C, S = in_channels, upscale_factor
+        self.drop_path = drop_path
         self.upscale_factor = S
         self.n_frequencies = n_frequencies
         self.enable_absolute_pe = enable_absolute_pe
@@ -203,7 +253,7 @@ class UpscaleModule(nn.Module):
         self.in_norm = PDNorm(C, pdnorm_n) if pdnorm_n else None
         self.out_norm = PDNorm(out_channels, pdnorm_n) if pdnorm_n else None
 
-    def forward(self, ps: PointSet) -> PointSet:
+    def forward(self, ps: PointSet, gen=None) -> PointSet:
         S = self.upscale_factor
         B, N, _ = ps.feat.shape
         feat = _norm(self.in_norm, ps.feat, ps.condition)
@@ -221,7 +271,8 @@ class UpscaleModule(nn.Module):
         else:
             df_in = torch.cat([delta_x, skip_f], dim=-1)
         df = self.delta_f_fc1(masked_layer_norm(df_in))
-        out_f = self.skip(skip_f) + self.delta_f_fc2(gelu(df))
+        out_f = self.skip(skip_f) + drop_path(self.delta_f_fc2(gelu(df)),
+                                              self.drop_path, self.training, gen)
         out_f = _norm(self.out_norm, out_f, ps.condition)
 
         attribute = ps.attribute

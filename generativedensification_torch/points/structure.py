@@ -63,9 +63,13 @@ def grid_quantize(coord: torch.Tensor, mask: torch.Tensor, grid_size: float) -> 
 
 
 def serialize_pointset(ps: PointSet, orders=("z", "z-trans", "hilbert", "hilbert-trans"),
-                       depth: int | None = None) -> PointSet:
-    """Per-order sort permutations (stable sort on the int64 key).  The
-    train-time order shuffling arrives with ROADMAP slice 4."""
+                       depth: int | None = None,
+                       shuffle: torch.Tensor | None = None) -> PointSet:
+    """Per-order sort permutations (stable sort on the int64 key).
+
+    ``shuffle`` (len(orders),), optional: the train-time order shuffling, a
+    permutation of which order each block index sees (the JAX
+    ``shuffle_key`` draws it with ``jax.random.permutation``)."""
     if depth is None:
         depth = depth_for_grid(ps.grid_size)
     gc = grid_quantize(ps.coord, ps.mask, ps.grid_size)
@@ -80,8 +84,10 @@ def serialize_pointset(ps: PointSet, orders=("z", "z-trans", "hilbert", "hilbert
         inv = torch.empty_like(perm).scatter_(1, perm, iota)
         perms.append(perm)
         invs.append(inv)
-    return ps.replace(orders=torch.stack(perms), inverses=torch.stack(invs),
-                      grid_coord=gc)
+    perms, invs = torch.stack(perms), torch.stack(invs)
+    if shuffle is not None:
+        perms, invs = perms[shuffle], invs[shuffle]
+    return ps.replace(orders=perms, inverses=invs, grid_coord=gc)
 
 
 def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

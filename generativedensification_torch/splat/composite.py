@@ -11,18 +11,43 @@ to the 3DGS CUDA rasterizer):
 The per-tile work is ``kernels.composite_fwd`` and ``kernels.composite_bwd``
 (the CUDA kernels for tensors on the card, their plain versions for CPU
 tensors).  ``composite_backward`` turns image, alpha and depth cotangents
-into per-Gaussian gradients in the three modes of the JAX backward;
-``composite_tiles_sel`` runs it in ``selonly`` mode against the image-MSE
-cotangent to give the AbsGS selection gradients of the serving path.  The
-autograd wiring of ``composite_tiles`` (``full`` / ``noabs`` behind
-``CompositeTiles.backward``) belongs to the train step, ROADMAP slice 4.
+into per-Gaussian gradients in the three modes of the JAX backward, and
+``slots_to_gaussians`` folds the kernel's per-slot rows into per-Gaussian
+sums by the strategy ``APOS_MODE`` names (``GD_APOS_MODE``; two of them go
+through ``kernels.reduce_slots`` and ``kernels.transpose_rows``).
+``composite_tiles`` is differentiable: its autograd backward runs the
+backward kernel in ``full`` mode when the caller passed the zero ``xy_abs``
+input (whose gradient is the AbsGS |dL/dxy|), ``noabs`` otherwise.
+``composite_tiles_sel`` also runs it in ``selonly`` mode against the
+image-MSE cotangent inside its forward to give the AbsGS selection
+gradients; its own backward is ``noabs``.  Both backwards reuse the forward
+kernel's output rows and the packed table: no second forward launch.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 
-from .kernels import composite_bwd, composite_fwd
+from .kernels import composite_bwd, composite_fwd, reduce_slots, transpose_rows
+
+# Per-slot gradient rows -> per-Gaussian sums, as the JAX package's
+# ``APOS_MODE`` (read once from GD_APOS_MODE; tests monkeypatch it):
+#   gauss_dsum      D gathers of one row per Gaussian, summed in slot order
+#                   (the default: no kernel)
+#   rank_dsum       the same with Gaussians keyed by depth rank, then one
+#                   gather back to Gaussian order
+#   gauss           one (N·D)-row gather in (Gaussian, slot) order, folded by
+#                   kernels.reduce_slots (TPU kernel pallas_reduce_slots)
+#   rank            the same keyed by depth rank, then the gather back
+#   gauss_dsum_col  the D gathers as columns of the attribute-major view of
+#                   the rows, summed, then kernels.transpose_rows (TPU kernel
+#                   pallas_transpose16) back to (N, w) rows
+# Every strategy adds each Gaussian's D slot rows in increasing slot order,
+# so all five give bitwise the same sums.
+APOS_MODES = ("gauss", "rank", "gauss_dsum", "rank_dsum", "gauss_dsum_col")
+APOS_MODE = os.environ.get("GD_APOS_MODE", "gauss_dsum")
 
 
 def pack_table(xy, conic, color, opacity, depth, valid=None) -> torch.Tensor:
@@ -66,42 +91,60 @@ def _images(out, bg, tiles_x, tiles_y, ts):
 
 
 class CompositeTiles(torch.autograd.Function):
-    """``composite_tiles`` forward; its autograd backward is not wired yet."""
+    """``composite_tiles``: the forward kernel, and the backward kernel in
+    ``full`` (with ``xy_abs``) or ``noabs`` mode as its autograd backward."""
 
     @staticmethod
-    def forward(ctx, xy, conic, color, opacity, depth, bg, sorted_ids,
-                tile_starts, tile_counts, tiles_x, tiles_y, tile_size, valid):
-        table = pack_table(xy, conic, color, opacity, depth, valid)
-        out = composite_fwd(table, sorted_ids, tile_starts, tile_counts,
-                            tiles_x, tiles_y, tile_size)       # (T, 5, ts²)
-        return _images(out, bg, tiles_x, tiles_y, tile_size)
+    def forward(ctx, xy, xy_abs, conic, color, opacity, depth, bg, bins, dims,
+                valid):
+        pos = xy if xy_abs is None else xy + xy_abs
+        table = pack_table(pos, conic, color, opacity, depth, valid)
+        sorted_ids, _, _, tile_starts, tile_counts, _ = bins
+        out = composite_fwd(table, sorted_ids, tile_starts, tile_counts, *dims)
+        ctx.save_for_backward(table, out, bg)
+        ctx.bins, ctx.dims, ctx.want_abs = bins, dims, xy_abs is not None
+        return _images(out, bg, *dims)
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "composite_tiles has no autograd backward yet: the compositing "
-            "gradient (kernel composite_bwd, modes full / noabs) is wired "
-            "into autograd with the train step, ROADMAP slice 4"
-        )
+    def backward(ctx, g_img, g_alpha, g_dep):
+        table, out, bg = ctx.saved_tensors
+        mode = "full" if ctx.want_abs else "noabs"
+        d_xy, d_abs, d_con, d_col, d_opa, d_dep, d_bg = composite_backward(
+            table, out, bg, _cotangents(out, ctx.dims, g_img, g_alpha, g_dep),
+            ctx.bins, ctx.dims, mode)
+        return (d_xy, d_abs if ctx.want_abs else None, d_con, d_col, d_opa,
+                d_dep, d_bg, None, None, None)
 
 
-def composite_tiles(xy, conic, color, opacity, depth, bg, sorted_ids,
-                    tile_starts, tile_counts, tiles_x: int, tiles_y: int,
-                    tile_size: int, valid=None):
-    """Composite N projected Gaussians into an image.
+def _cotangents(out, dims, g_img, g_alpha, g_dep):
+    """The three image cotangents at tile-padded size, zeros for an output
+    that received none."""
+    tiles_x, tiles_y, ts = dims
+    H, W = tiles_y * ts, tiles_x * ts
+    z = lambda g, *c: out.new_zeros((H, W, *c)) if g is None else g.contiguous()
+    return z(g_img, 3), z(g_alpha), z(g_dep)
+
+
+def composite_tiles(xy, conic, color, opacity, depth, bg, bins, dims,
+                    valid=None, xy_abs=None):
+    """Composite N projected Gaussians into an image (differentiable).
 
     Args:
       xy, conic, color, opacity, depth: per-Gaussian (N, ...) tensors.
       bg: (3,) background color.
-      sorted_ids, tile_starts, tile_counts: the ``TileBins`` segment arrays,
-        counts already clamped to the per-tile cap.
+      bins: (sorted_ids, sorted_o, depth_order, tile_starts, tile_counts,
+        n_slots) — the ``TileBins`` arrays, counts already clamped to the
+        per-tile cap, and the slot-major extent N·max_tiles of ``sorted_o``.
+      dims: (tiles_x, tiles_y, tile_size).
       valid: optional (N,) bool; a slot of an invalid Gaussian is skipped.
+      xy_abs: optional (N, 2) zeros added to ``xy``; its gradient is the
+        AbsGS |dL/dxy| (the backward kernel's ``full`` mode).  Without it
+        the backward runs ``noabs``.
     Returns:
       image (H', W', 3), alpha (H', W'), depth (H', W') at tile-padded size.
     """
-    return CompositeTiles.apply(xy, conic, color, opacity, depth, bg,
-                                sorted_ids, tile_starts, tile_counts,
-                                tiles_x, tiles_y, tile_size, valid)
+    return CompositeTiles.apply(xy, xy_abs, conic, color, opacity, depth, bg,
+                                bins, dims, valid)
 
 
 # ---------------------------------------------------------------------------
@@ -141,40 +184,78 @@ def _bwd_common(out, bg, cot, tiles_x, tiles_y, ts):
     return gc4, (G + gTf).contiguous(), d_bg
 
 
-def slots_to_gaussians(slot_rows, sorted_o, n_gauss: int, n_slots: int):
-    """Per-slot rows (P, w) -> per-Gaussian sums (N, w).
+def _rank_of_id(depth_order):
+    """(N,) Gaussian -> depth rank (the inverse of ``depth_order``)."""
+    rank = torch.empty_like(depth_order, dtype=torch.long)
+    rank[depth_order.long()] = torch.arange(depth_order.shape[0],
+                                            device=depth_order.device)
+    return rank
+
+
+def slots_to_gaussians(slot_rows, sorted_o, depth_order, n_slots: int):
+    """Per-slot rows (P, w) -> per-Gaussian sums (N, w), by ``APOS_MODE``.
 
     ``sorted_o`` holds the slot-major original slot ``d·N + n`` of every
-    sorted slot.  Its inverse, built by a scatter onto a zero sentinel row
-    (P) so that a pair budget (P < N·D) leaves the dropped slots at zero,
-    gathers each Gaussian's D slot rows, which are then summed over d in
-    order: the same sums in the same order on every run."""
+    sorted slot and ``depth_order`` (N,) the Gaussian of each depth rank.
+    The strategy's key of every sorted slot is inverted by a scatter onto a
+    zero sentinel row (P), so that a pair budget (P < N·D) leaves the
+    dropped slots at zero; each Gaussian's D slot rows are then summed in
+    increasing slot order: the same sums in the same order for every
+    strategy and every run."""
+    mode = APOS_MODE
+    if mode not in APOS_MODES:
+        raise ValueError(f"GD_APOS_MODE={mode!r}; one of {APOS_MODES}")
     P, w = slot_rows.shape
+    N = depth_order.shape[0]
+    D = n_slots // N
+    dev = slot_rows.device
+    o = sorted_o.long()
+    rank = _rank_of_id(depth_order) if mode.startswith("rank") else None
+    if mode.startswith("gauss_dsum"):
+        key = o
+    else:
+        g, d_of = o % N, torch.div(o, N, rounding_mode="floor")
+        if mode == "gauss":
+            key = g * D + d_of
+        elif mode == "rank_dsum":
+            key = d_of * N + rank[g]
+        else:                                           # rank
+            key = rank[g] * D + d_of
+    inv = torch.full((n_slots,), P, dtype=torch.long, device=dev)
+    inv[key] = torch.arange(P, device=dev)
     ext = torch.cat([slot_rows, slot_rows.new_zeros((1, w))])
-    inv = torch.full((n_slots,), P, dtype=torch.long, device=slot_rows.device)
-    inv[sorted_o.long()] = torch.arange(P, device=slot_rows.device)
-    per_d = ext[inv].reshape(n_slots // n_gauss, n_gauss, w)
-    acc = per_d[0]
-    for d in range(1, per_d.shape[0]):
-        acc = acc + per_d[d]
-    return acc
+    if mode == "gauss_dsum_col":
+        by_slot = inv.reshape(D, N)
+        cols_view = ext.t()                             # (w, P + 1)
+        cols = cols_view.index_select(1, by_slot[0])
+        for d in range(1, D):
+            cols = cols + cols_view.index_select(1, by_slot[d])
+        return transpose_rows(cols)
+    if mode.endswith("_dsum"):
+        per_d = ext[inv].reshape(D, N, w)
+        red = per_d[0]
+        for d in range(1, D):
+            red = red + per_d[d]
+    else:
+        red = reduce_slots(ext[inv], N, D)
+    return red if rank is None else red[rank]
 
 
-def composite_backward(table, out, bg, cot, sorted_ids, sorted_o, tile_starts,
-                       tile_counts, tiles_x: int, tiles_y: int, tile_size: int,
-                       n_slots: int, mode: str = "full"):
+def composite_backward(table, out, bg, cot, bins, dims, mode: str = "full"):
     """Per-Gaussian compositing gradients from the forward kernel's output
     rows ``out`` and the (image, alpha, depth) cotangents ``cot`` at
-    tile-padded size.
+    tile-padded size; ``bins`` and ``dims`` as ``composite_tiles`` takes
+    them.
 
     Returns ``(d_xy, d_abs, d_conic, d_color, d_opacity, d_depth, d_bg)``
     as the JAX backward does; ``d_abs`` holds the AbsGS |dL/dx|, |dL/dy|
     sums.  Rows a mode does not compute come back as zeros (``noabs``:
     d_abs; ``selonly``: everything but d_abs)."""
-    gc4, G2, d_bg = _bwd_common(out, bg, cot, tiles_x, tiles_y, tile_size)
+    sorted_ids, sorted_o, depth_order, tile_starts, tile_counts, n_slots = bins
+    gc4, G2, d_bg = _bwd_common(out, bg, cot, *dims)
     rows = composite_bwd(table, sorted_ids, tile_starts, tile_counts, gc4, G2,
-                         tiles_x, tiles_y, tile_size, mode)
-    g = slots_to_gaussians(rows, sorted_o, table.shape[0], n_slots)
+                         *dims, mode)
+    g = slots_to_gaussians(rows, sorted_o, depth_order, n_slots)
     grads = g.new_zeros((g.shape[0], 12))
     lo = 10 if mode == "selonly" else 0
     grads[:, lo:lo + g.shape[1]] = g
@@ -183,46 +264,44 @@ def composite_backward(table, out, bg, cot, sorted_ids, sorted_o, tile_starts,
 
 
 class CompositeTilesSel(torch.autograd.Function):
-    """``composite_tiles_sel`` forward; its autograd backward (the ``noabs``
-    gradient of the image outputs) is not wired yet."""
+    """``composite_tiles_sel``: the forward kernel and one ``selonly``
+    backward launch in the forward; the ``noabs`` backward as its autograd
+    backward (zero gradients for ``gt`` and ``sel_abs``)."""
 
     @staticmethod
-    def forward(ctx, xy, conic, color, opacity, depth, bg, gt, sorted_ids,
-                sorted_o, tile_starts, tile_counts, tiles_x, tiles_y,
-                tile_size, valid, n_slots):
+    def forward(ctx, xy, conic, color, opacity, depth, bg, gt, bins, dims,
+                valid):
         table = pack_table(xy, conic, color, opacity, depth, valid)
-        out = composite_fwd(table, sorted_ids, tile_starts, tile_counts,
-                            tiles_x, tiles_y, tile_size)
-        image, alpha, dep = _images(out, bg, tiles_x, tiles_y, tile_size)
+        sorted_ids, _, _, tile_starts, tile_counts, _ = bins
+        out = composite_fwd(table, sorted_ids, tile_starts, tile_counts, *dims)
+        image, alpha, dep = _images(out, bg, *dims)
         cot = (mse_image_cotangent(image, gt.to(torch.float32)),
                torch.zeros_like(alpha), torch.zeros_like(dep))
-        sel_abs = composite_backward(
-            table, out, bg, cot, sorted_ids, sorted_o, tile_starts,
-            tile_counts, tiles_x, tiles_y, tile_size, n_slots, "selonly")[1]
+        sel_abs = composite_backward(table, out, bg, cot, bins, dims,
+                                     "selonly")[1]
         ctx.mark_non_differentiable(sel_abs)
+        ctx.save_for_backward(table, out, bg)
+        ctx.bins, ctx.dims = bins, dims
         return image, alpha, dep, sel_abs
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "composite_tiles_sel has no autograd backward yet: it arrives "
-            "with the train step, ROADMAP slice 4"
-        )
+    def backward(ctx, g_img, g_alpha, g_dep, _g_sel):
+        table, out, bg = ctx.saved_tensors
+        d_xy, _, d_con, d_col, d_opa, d_dep, d_bg = composite_backward(
+            table, out, bg, _cotangents(out, ctx.dims, g_img, g_alpha, g_dep),
+            ctx.bins, ctx.dims, "noabs")
+        return d_xy, d_con, d_col, d_opa, d_dep, d_bg, None, None, None, None
 
 
-def composite_tiles_sel(xy, conic, color, opacity, depth, bg, gt, sorted_ids,
-                        sorted_o, tile_starts, tile_counts, tiles_x: int,
-                        tiles_y: int, tile_size: int, valid=None,
-                        n_slots: int = 0):
+def composite_tiles_sel(xy, conic, color, opacity, depth, bg, gt, bins, dims,
+                        valid=None):
     """``composite_tiles`` that also emits the AbsGS selection gradients.
 
     Returns ``(image, alpha, depth, sel_abs)``: ``sel_abs`` (N, 2) is the
     absolute screen gradient of the image MSE against ``gt`` (H, W, 3), the
     reference's ``means2D.grad[:, 2:4]``, from one ``selonly`` application
     of the backward kernel to the forward's own output rows (no second
-    render).  ``n_slots`` is the slot-major extent N·max_tiles of
-    ``sorted_o`` (0: the number of sorted slots)."""
-    return CompositeTilesSel.apply(
-        xy, conic, color, opacity, depth, bg, gt, sorted_ids, sorted_o,
-        tile_starts, tile_counts, tiles_x, tiles_y, tile_size, valid,
-        n_slots or sorted_ids.shape[0])
+    render); ``sel_abs`` carries no gradient.  ``bins`` and ``dims`` as
+    ``composite_tiles`` takes them."""
+    return CompositeTilesSel.apply(xy, conic, color, opacity, depth, bg, gt,
+                                   bins, dims, valid)

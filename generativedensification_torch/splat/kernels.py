@@ -1,20 +1,23 @@
-"""The 3DGS compositing kernels: CUDA kernel wrappers, launch counts and the
-plain PyTorch versions; the build of every kernel of the port.
+"""The 3DGS compositing kernels and the slot-reduction kernels: CUDA kernel
+wrappers, launch counts and the plain PyTorch versions; the build of every
+kernel of the port.
 
 Replaces ``generativedensification_tpu/splat/pallas_kernels.py``'s
-``pallas_composite_fwd`` (``csrc/composite_fwd.cu``) and
-``pallas_composite_bwd`` (``csrc/composite_bwd.cu``).  The 2DGS surfel
-kernels (``csrc/surfel_fwd.cu``, ``csrc/surfel_bwd.cu``) have their wrappers
-in ``surfel_kernels.py`` and are registered here too, so that ``build()``
-compiles all four sources and ``launch_counts`` counts every launch.  Each
+``pallas_composite_fwd`` (``csrc/composite_fwd.cu``),
+``pallas_composite_bwd`` (``csrc/composite_bwd.cu``), ``pallas_reduce_slots``
+(``csrc/reduce_slots.cu``) and ``pallas_transpose16``
+(``csrc/transpose_rows.cu``).  The 2DGS surfel kernels
+(``csrc/surfel_fwd.cu``, ``csrc/surfel_bwd.cu``) have their wrappers in
+``surfel_kernels.py`` and are registered here too, so that ``build()``
+compiles all six sources and ``launch_counts`` counts every launch.  Each
 source is built with ``nvcc`` for ``sm_90a`` into a plain-C shared library at
 first use (all sources compiled at once, one ``nvcc`` each) and loaded with
 ``ctypes``; nothing is compiled or imported for them when this module is
 imported.
 
-``composite_fwd`` and ``composite_bwd`` are the entries: tensors on the card
-launch the kernel (or raise), tensors on the CPU take the plain version.
-Nothing else chooses.
+``composite_fwd``, ``composite_bwd``, ``reduce_slots`` and ``transpose_rows``
+are the entries: tensors on the card launch the kernel (or raise), tensors on
+the CPU take the plain version.  Nothing else chooses.
 
 Inputs shared by both kernels:
   table       (N, 12) f32 per-gaussian rows
@@ -64,7 +67,7 @@ NVCC_FLAGS = (
 # launches of each kernel of this module; a wrapper adds one where it
 # launches, and nowhere else
 launch_counts = {"composite_fwd": 0, "composite_bwd": 0, "surfel_fwd": 0,
-                 "surfel_bwd": 0}
+                 "surfel_bwd": 0, "reduce_slots": 0, "transpose_rows": 0}
 
 
 def reset_launch_counts() -> None:
@@ -93,6 +96,8 @@ _libraries = {
     "composite_bwd": _Library("composite_bwd", [_P] * 7 + [_I] * 4 + [_P]),
     "surfel_fwd": _Library("surfel_fwd", [_P] * 6 + [_I] * 3 + [_P]),
     "surfel_bwd": _Library("surfel_bwd", [_P] * 8 + [_I] * 4 + [_P]),
+    "reduce_slots": _Library("reduce_slots", [_P] * 2 + [_I] * 3 + [_P]),
+    "transpose_rows": _Library("transpose_rows", [_P] * 2 + [_I] * 2 + [_P]),
 }
 
 
@@ -419,3 +424,78 @@ def composite_bwd_plain(table, sorted_ids, tile_starts, tile_counts, gc4, g2,
         stats["evals"] = int(n_eval)
         stats["contribs"] = int(n_contrib)
     return out
+
+
+# ---------------------------------------------------------------------------
+# slot reductions (the per-slot gradient rows -> per-gaussian sums)
+# ---------------------------------------------------------------------------
+
+
+def _check_f32_2d(name, x):
+    if x.dtype != torch.float32 or x.dim() != 2:
+        raise ValueError(f"{name} must be 2-D float32, got {tuple(x.shape)} "
+                         f"{x.dtype}")
+
+
+def _cuda_ready(name, *ts):
+    dev = ts[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if any(t.device != dev for t in ts) or not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{name}: inputs must be contiguous and on one device")
+    return dev
+
+
+def reduce_slots(rows, n: int, d: int) -> torch.Tensor:
+    """Sum groups of ``d`` consecutive rows: (n·d, w) -> (n, w), each output
+    the sum of its d rows in increasing order."""
+    _check_f32_2d("rows", rows)
+    if rows.shape[0] != n * d:
+        raise ValueError(f"rows must have n·d = {n * d} rows, got {rows.shape[0]}")
+    if rows.device.type == "cpu":
+        return reduce_slots_plain(rows, n, d)
+    dev = _cuda_ready("reduce_slots", rows)
+    lib = build()["reduce_slots"].lib
+    w = rows.shape[1]
+    out = torch.empty((n, w), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.gd_reduce_slots(rows.data_ptr(), out.data_ptr(), n, d, w,
+                                  torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"reduce_slots launch failed: CUDA error {err}")
+    launch_counts["reduce_slots"] += 1
+    return out
+
+
+def reduce_slots_plain(rows, n: int, d: int) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: the d rows of each group added
+    one after the other, the kernel's order."""
+    per = rows.reshape(n, d, rows.shape[1])
+    acc = per[:, 0]
+    for k in range(1, d):
+        acc = acc + per[:, k]
+    return acc.contiguous()
+
+
+def transpose_rows(cols) -> torch.Tensor:
+    """Exact transpose (w, M) -> (M, w)."""
+    _check_f32_2d("cols", cols)
+    if cols.device.type == "cpu":
+        return transpose_rows_plain(cols)
+    dev = _cuda_ready("transpose_rows", cols)
+    lib = build()["transpose_rows"].lib
+    w, M = cols.shape
+    out = torch.empty((M, w), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.gd_transpose_rows(cols.data_ptr(), out.data_ptr(), w, M,
+                                    torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"transpose_rows launch failed: CUDA error {err}")
+    launch_counts["transpose_rows"] += 1
+    return out
+
+
+def transpose_rows_plain(cols) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: the w input rows become the
+    output's columns."""
+    return torch.stack(list(cols), dim=1)

@@ -92,14 +92,14 @@ def compute_cov2d_abc(mean_view, symm6, view_rot, focal_x, focal_y,
 
 
 def project_gaussians(means3d, shs, opacity, camera, sh_degree: int,
-                      scales, rotations) -> ProjectedGaussians:
+                      scales, rotations, screen_offset=None) -> ProjectedGaussians:
     """Project N Gaussians into one camera.
 
     means3d (N, 3) world means; shs (N, (d+1)², 3); opacity (N,) activated;
-    scales (N, 3) activated; rotations (N, 4) normalized quaternions.  (The
-    JAX function's ``cov3d`` input and ``screen_offset`` gradient hook are
-    not ported: nothing on the coarse path uses them, and the hook needs
-    the compositing backward of ROADMAP slice 2.)"""
+    scales (N, 3) activated; rotations (N, 4) normalized quaternions.
+    ``screen_offset`` (N, 2), optional, is added to the projected means: the
+    zero input through which the signed screen-space gradients are read.
+    (The JAX function's ``cov3d`` input is not ported: nothing uses it.)"""
     f32 = torch.float32
     means3d = means3d.to(f32)
     N = means3d.shape[0]
@@ -118,6 +118,8 @@ def project_gaussians(means3d, shs, opacity, camera, sh_degree: int,
          ((ndc[..., 1] + 1.0) * camera.height - 1.0) * 0.5],
         dim=-1,
     )
+    if screen_offset is not None:
+        xy = xy + screen_offset.to(f32)
     symm6 = _symm6_from_scales_rots(scales.to(f32), rotations.to(f32))
     view_rot = camera.world_view_transform[:3, :3].T   # R_w2c
     a, b, c = compute_cov2d_abc(

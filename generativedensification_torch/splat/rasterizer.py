@@ -1,12 +1,16 @@
 """Public splatting API (3DGS path), PyTorch.
 
 Port of ``generativedensification_tpu/splat/rasterizer.py``: image
-(H, W, 3), alpha map, expected depth and per-Gaussian radii.  Tensors on
-the card composite through the CUDA kernel, CPU tensors through its plain
-version; there is no backend switch.  ``sel_gt`` gives the fused AbsGS
-selection gradients of the serving path (``composite_tiles_sel``); the
-``screen_offset`` / ``screen_abs`` gradient hooks need autograd through the
-rasterizer and arrive with the train step, ROADMAP slice 4.
+(H, W, 3), alpha map, expected depth and per-Gaussian radii, differentiable
+through autograd.  Tensors on the card composite through the CUDA kernels,
+CPU tensors through their plain versions; there is no backend switch.
+``screen_offset`` / ``screen_abs`` are the AbsGS gradient hooks of the
+reference's zero ``means2D`` tensor: ``screen_offset`` is added to the
+projected means (its gradient is the signed screen gradient) and
+``screen_abs`` is the zero ``xy_abs`` input of ``composite_tiles`` (its
+gradient is the absolute one, from the backward kernel's ``full`` mode).
+``sel_gt`` gives the fused AbsGS selection gradients of one forward
+(``composite_tiles_sel``).
 """
 
 from __future__ import annotations
@@ -36,7 +40,9 @@ def rasterize(means3d, shs, opacities, scales, rotations, camera, bg,
               sh_degree: int, tile_size: int = 32, max_tiles: int = 16,
               max_per_tile: int = 4096, max_pairs: int | None = None,
               enum_tiles: int | None = None,
-              sel_gt: torch.Tensor | None = None) -> RasterizeOutput:
+              sel_gt: torch.Tensor | None = None,
+              screen_offset: torch.Tensor | None = None,
+              screen_abs: torch.Tensor | None = None) -> RasterizeOutput:
     """Splat N activated Gaussians into one camera.
 
     means3d (N, 3); shs (N, (d+1)², 3); opacities (N,) sigmoid-activated;
@@ -45,13 +51,16 @@ def rasterize(means3d, shs, opacities, scales, rotations, camera, bg,
     static live-pair budget (dropped pairs count in ``overflow``).
     ``sel_gt`` (H, W, 3): the output also carries ``sel_abs``, the AbsGS
     selection gradients of the image MSE against it, from the same forward.
+    ``screen_offset`` / ``screen_abs`` (N, 2) zeros: their gradients are the
+    signed / absolute screen-space gradients (``screen_abs`` is ignored
+    with ``sel_gt``, as in the JAX function).
     """
     N = means3d.shape[0]
     H, W = camera.height, camera.width
     max_per_tile = min(max_per_tile, N * max_tiles)
 
     proj = project_gaussians(means3d, shs, opacities, camera, sh_degree,
-                             scales, normalize_quat(rotations))
+                             scales, normalize_quat(rotations), screen_offset)
     bins = bin_gaussians(proj, H, W, tile_size=tile_size, max_tiles=max_tiles,
                          max_pairs=max_pairs, enum_tiles=enum_tiles)
     opacity_eff = torch.where(proj.valid, proj.opacity,
@@ -62,20 +71,18 @@ def rasterize(means3d, shs, opacities, scales, rotations, camera, bg,
     # count the truncation in ``overflow``
     tile_counts = torch.clamp(bins.tile_counts, max=max_per_tile)
     cap_overflow = (bins.tile_counts - tile_counts).sum().to(torch.int32)
+    seg = (bins.sorted_ids, bins.sorted_o, bins.depth_order, bins.tile_starts,
+           tile_counts, N * max_tiles)
+    dims = (bins.tiles_x, bins.tiles_y, tile_size)
+    attrs = (proj.xy, proj.conic, proj.color, opacity_eff, proj.depth,
+             bg.to(torch.float32))
     sel_abs = None
     if sel_gt is not None:
         image, alpha, depth, sel_abs = composite_tiles_sel(
-            proj.xy, proj.conic, proj.color, opacity_eff, proj.depth,
-            bg.to(torch.float32), sel_gt, bins.sorted_ids, bins.sorted_o,
-            bins.tile_starts, tile_counts, bins.tiles_x, bins.tiles_y,
-            tile_size, proj.valid, N * max_tiles,
-        )
+            *attrs, sel_gt, seg, dims, proj.valid)
     else:
-        image, alpha, depth = composite_tiles(
-            proj.xy, proj.conic, proj.color, opacity_eff, proj.depth,
-            bg.to(torch.float32), bins.sorted_ids, bins.tile_starts,
-            tile_counts, bins.tiles_x, bins.tiles_y, tile_size, proj.valid,
-        )
+        image, alpha, depth = composite_tiles(*attrs, seg, dims, proj.valid,
+                                              screen_abs)
     return RasterizeOutput(
         image=torch.clamp(image[:H, :W], 0.0, 1.0),
         alpha=alpha[:H, :W],

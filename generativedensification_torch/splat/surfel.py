@@ -17,10 +17,12 @@ The per-tile work is ``surfel_kernels.surfel_fwd`` / ``surfel_bwd`` (the
 CUDA kernels for tensors on the card, their plain versions for CPU tensors).
 ``composite_surfels_backward`` turns the six output cotangents into
 per-surfel gradients (``full``) or the AbsGS selection gradients
-(``selonly``); ``composite_surfels_sel`` runs the latter against the
-image-MSE cotangent for the fused selection of the serving path.  The
-autograd wiring of ``composite_surfels`` (kernel #4 ``full`` behind
-``CompositeSurfels.backward``) belongs to the train step, ROADMAP slice 4.
+(``selonly``), summing each surfel's slot rows by ``composite.APOS_MODE``.
+``composite_surfels`` is differentiable: its autograd backward is the
+``full`` mode, on the forward kernel's saved output rows and table.
+``composite_surfels_sel`` also runs ``selonly`` against the image-MSE
+cotangent inside its forward (the fused selection); its autograd backward is
+``full`` as well, with zero gradients for ``gt`` and ``sel_abs``.
 """
 
 from __future__ import annotations
@@ -178,40 +180,52 @@ def _maps(out, bg, tiles_x, tiles_y, ts):
 
 
 class CompositeSurfels(torch.autograd.Function):
-    """``composite_surfels`` forward; its autograd backward is not wired
-    yet."""
+    """``composite_surfels``: the forward kernel, and the backward kernel in
+    ``full`` mode as its autograd backward."""
 
     @staticmethod
     def forward(ctx, acr, bcr, ccr, det, xy, rad, color, opacity, normal, bg,
-                planes, bins, dims):
+                planes, bins, dims, n_slots):
         table = pack_surfel_table(acr, bcr, ccr, det, xy, rad, color, opacity,
                                   normal)
-        sorted_ids, _, tile_starts, tile_counts = bins
+        sorted_ids, _, _, tile_starts, tile_counts = bins
         out = surfel_fwd(table, sorted_ids, tile_starts, tile_counts, planes,
                          *dims)
+        ctx.save_for_backward(table, out, bg, planes)
+        ctx.bins, ctx.dims, ctx.n_slots = bins, dims, n_slots
         return _maps(out, bg, *dims)
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "composite_surfels has no autograd backward yet: the surfel "
-            "compositing gradient (kernel surfel_bwd, mode full, "
-            "composite_surfels_backward) is wired into autograd with the "
-            "train step, ROADMAP slice 4")
+    def backward(ctx, *g_maps):
+        return _full_backward(ctx, g_maps) + (None,)
+
+
+def _full_backward(ctx, g_maps):
+    """The ``full`` backward of a surfel composite from the saved forward
+    rows: gradients in ``composite_surfels``' argument order up to
+    ``dims`` (``rad``, ``planes``, ``bins`` and ``dims`` get none)."""
+    table, out, bg, planes = ctx.saved_tensors
+    (d_acr, d_bcr, d_ccr, d_det, d_xy, d_col, d_opa, d_nrm, d_bg), _ = \
+        composite_surfels_backward(table, out, bg, g_maps, planes, ctx.bins,
+                                   ctx.dims, ctx.n_slots, "full")
+    return (d_acr, d_bcr, d_ccr, d_det, d_xy, None, d_col, d_opa, d_nrm, d_bg,
+            None, None, None)
 
 
 def composite_surfels(acr, bcr, ccr, det, xy, rad, color, opacity, normal, bg,
-                      planes, bins, dims):
+                      planes, bins, dims, n_slots: int):
     """Composite N surfels -> (image, alpha, depth_exp, depth_med, normal,
-    dist), each (H', W'[, 3]) at tile-padded size.
+    dist), each (H', W'[, 3]) at tile-padded size (differentiable; ``rad``
+    takes no gradient).
 
     ``planes`` (2,) [znear, zfar]; ``bins`` (sorted_ids, sorted_o,
-    tile_starts, tile_counts) with the counts clamped to the per-tile cap;
-    ``dims`` (tiles_x, tiles_y, tile_size).  ``rad`` is the screen
+    depth_order, tile_starts, tile_counts) with the counts clamped to the
+    per-tile cap; ``dims`` (tiles_x, tiles_y, tile_size); ``n_slots`` the
+    slot-major extent N·max_tiles of ``sorted_o``.  ``rad`` is the screen
     truncation radius: pixels farther than ``rad`` from the filter center
     get nothing, which makes the binning's circle cull exact."""
     return CompositeSurfels.apply(acr, bcr, ccr, det, xy, rad, color, opacity,
-                                  normal, bg, planes, bins, dims)
+                                  normal, bg, planes, bins, dims, n_slots)
 
 
 def _bwd_rows(out, bg, cot, dims, mode):
@@ -257,11 +271,11 @@ def composite_surfels_backward(table, out, bg, cot, planes, bins, dims,
     d_xy, d_color, d_opacity, d_normal, d_bg) and sel_abs None; ``selonly``
     (which reads only the image cotangent) gives grads None and sel_abs
     (N, 2)."""
-    sorted_ids, sorted_o, tile_starts, tile_counts = bins
+    sorted_ids, sorted_o, depth_order, tile_starts, tile_counts = bins
     cot8, aux5, d_bg = _bwd_rows(out, bg, cot, dims, mode)
     rows = surfel_bwd(table, sorted_ids, tile_starts, tile_counts, planes, cot8,
                       aux5, *dims, mode)
-    g = slots_to_gaussians(rows, sorted_o, table.shape[0], n_slots)
+    g = slots_to_gaussians(rows, sorted_o, depth_order, n_slots)
     if mode != "full":
         return None, g
     grads = (g[:, 0:BX], g[:, BX:CX], g[:, CX:DET], g[:, DET], g[:, PX:OPA],
@@ -270,15 +284,16 @@ def composite_surfels_backward(table, out, bg, cot, planes, bins, dims,
 
 
 class CompositeSurfelsSel(torch.autograd.Function):
-    """``composite_surfels_sel`` forward; its autograd backward is not wired
-    yet."""
+    """``composite_surfels_sel``: the forward kernel and one ``selonly``
+    backward launch in the forward; the ``full`` backward as its autograd
+    backward (zero gradients for ``gt`` and ``sel_abs``)."""
 
     @staticmethod
     def forward(ctx, acr, bcr, ccr, det, xy, rad, color, opacity, normal, bg,
                 planes, gt, bins, dims, n_slots):
         table = pack_surfel_table(acr, bcr, ccr, det, xy, rad, color, opacity,
                                   normal)
-        sorted_ids, _, tile_starts, tile_counts = bins
+        sorted_ids, _, _, tile_starts, tile_counts = bins
         out = surfel_fwd(table, sorted_ids, tile_starts, tile_counts, planes,
                          *dims)
         maps = _maps(out, bg, *dims)
@@ -287,13 +302,14 @@ class CompositeSurfelsSel(torch.autograd.Function):
         _, sel_abs = composite_surfels_backward(table, out, bg, cot, planes,
                                                 bins, dims, n_slots, "selonly")
         ctx.mark_non_differentiable(sel_abs)
+        ctx.save_for_backward(table, out, bg, planes)
+        ctx.bins, ctx.dims, ctx.n_slots = bins, dims, n_slots
         return (*maps, sel_abs)
 
     @staticmethod
     def backward(ctx, *grads):
-        raise NotImplementedError(
-            "composite_surfels_sel has no autograd backward yet: it arrives "
-            "with the train step, ROADMAP slice 4")
+        g = _full_backward(ctx, grads[:6])
+        return g[:11] + (None,) + g[11:] + (None,)
 
 
 def composite_surfels_sel(acr, bcr, ccr, det, xy, rad, color, opacity, normal,
@@ -305,8 +321,9 @@ def composite_surfels_sel(acr, bcr, ccr, det, xy, rad, color, opacity, normal,
     Translating a surfel by (ox, oy) on the screen moves its affine
     coefficients (a -> a - B·ox - C·oy) and its filter center (p -> p + o);
     one ``selonly`` application of the backward kernel to the forward's own
-    rows gives them (no second render).  ``n_slots`` is the slot-major
-    extent N·max_tiles of ``sorted_o`` (0: the number of sorted slots)."""
+    rows gives them (no second render).  ``bins``, ``dims`` and ``n_slots``
+    as ``composite_surfels`` takes them (``n_slots`` 0: the number of
+    sorted slots)."""
     return CompositeSurfelsSel.apply(
         acr, bcr, ccr, det, xy, rad, color, opacity, normal, bg, planes, gt,
         bins, dims, n_slots or bins[0].shape[0])
@@ -318,7 +335,8 @@ class SurfelInputs:
 
     attrs: tuple            # acr, bcr, ccr, det, xy, rad, color, opacity, normal
     planes: torch.Tensor    # (2,) [znear, zfar]
-    bins: tuple             # sorted_ids, sorted_o, tile_starts, clamped counts
+    bins: tuple             # sorted_ids, sorted_o, depth_order, tile_starts,
+                            # clamped counts
     dims: tuple             # tiles_x, tiles_y, tile_size
     n_slots: int            # N · max_tiles, the extent of sorted_o
     radius: torch.Tensor    # (N,)
@@ -358,7 +376,8 @@ def surfel_inputs(means3d, shs, opacities, scales2d, rotations, camera,
     return SurfelInputs(
         attrs=(acr, bcr, ccr, det, xy, radius.detach(), color, opacity_eff, n_view),
         planes=planes,
-        bins=(bins.sorted_ids, bins.sorted_o, bins.tile_starts, tile_counts),
+        bins=(bins.sorted_ids, bins.sorted_o, bins.depth_order, bins.tile_starts,
+              tile_counts),
         dims=(bins.tiles_x, bins.tiles_y, tile_size),
         n_slots=N * max_tiles,
         radius=radius,
@@ -388,7 +407,7 @@ def rasterize_surfels(means3d, shs, opacities, scales2d, rotations, camera, bg,
         *maps, sel_abs = composite_surfels_sel(*args, sel_gt, si.bins, si.dims,
                                                si.n_slots)
     else:
-        maps = composite_surfels(*args, si.bins, si.dims)
+        maps = composite_surfels(*args, si.bins, si.dims, si.n_slots)
     image, alpha, dexp, dmed, nacc, dist = maps
     return SurfelOutput(
         image=torch.clamp(image[:H, :W], 0.0, 1.0),

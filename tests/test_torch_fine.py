@@ -51,6 +51,12 @@ def _j_bins(d):
             jnp.asarray(d["starts"]), jnp.asarray(d["counts"]))
 
 
+def _t_bins(d):
+    """The port's ``bins`` of the scene (identity depth order)."""
+    return (T(d["ids"]), T(d["sorted_o"]), torch.arange(N, dtype=torch.int32),
+            T(d["starts"]), T(d["counts"]), P)
+
+
 # --------------------------------------------------------------------------
 # the compositing backward, all three modes
 # --------------------------------------------------------------------------
@@ -83,9 +89,8 @@ def test_composite_backward_matches_jax(ts, backend):
         jg = jax.jit(jax.grad(loss, argnums=tuple(range(7))))(
             J("xy"), jnp.zeros((N, 2)), J("conic"), J("color"), J("opa"), J("depth"),
             J("bg"))
-        tg = tcomp.composite_backward(table, out, T(d["bg"]), cot, T(d["ids"]),
-                                      T(d["sorted_o"]), T(d["starts"]),
-                                      T(d["counts"]), TILES, TILES, ts, P, mode)
+        tg = tcomp.composite_backward(table, out, T(d["bg"]), cot, _t_bins(d),
+                                      (TILES, TILES, ts), mode)
         for a, b, name in zip(jg, tg, names):
             _scaled_close(a, b, f"{mode} d_{name}")
         if mode == "noabs":
@@ -98,8 +103,7 @@ def test_composite_backward_matches_jax(ts, backend):
     with torch.inference_mode():
         to = tcomp.composite_tiles_sel(
             T(d["xy"]), T(d["conic"]), T(d["color"]), T(d["opa"]), T(d["depth"]),
-            T(d["bg"]), T(gt), T(d["ids"]), T(d["sorted_o"]), T(d["starts"]),
-            T(d["counts"]), TILES, TILES, ts)
+            T(d["bg"]), T(gt), _t_bins(d), (TILES, TILES, ts))
     for a, b, name in zip(jo[:3], to[:3], ["image", "alpha", "depth"]):
         np.testing.assert_allclose(np.asarray(a), b.numpy(), atol=2e-4, err_msg=name)
     assert float(to[3].abs().max()) > 0
@@ -157,7 +161,7 @@ def _jax_neighbor_table(port_fn):
     entry is a co-voxel representative of the queried voxel."""
     def wrapped(ps):
         out = port_fn(ps)
-        jps = jst.PointSet(coord=jnp.asarray(ps.coord.numpy()),
+        jps = jst.PointSet(coord=jnp.asarray(ps.coord.detach().numpy()),
                            feat=jnp.zeros(ps.mask.shape + (1,)),
                            mask=jnp.asarray(ps.mask.numpy()),
                            grid_coord=jnp.asarray(ps.grid_coord.numpy()))

@@ -1,8 +1,9 @@
-"""The port's compositing kernels: the forward's plain version against a
+"""The port's kernels: the compositing forward's plain version against a
 per-pixel serial reference and the backward's modes against each other on
-the CPU, the same for the 2DGS surfel kernels, and all four CUDA kernels
-against their plain versions on the card (``gpu`` marker; skips without
-one).
+the CPU, the same for the 2DGS surfel kernels, the slot-reduction kernels'
+plain versions against the PyTorch calls they equal, and all six CUDA
+kernels against their plain versions on the card (``gpu`` marker; skips
+without one).
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine with only PyTorch:
@@ -221,7 +222,7 @@ def _surfel_inputs(n, seed, dev, hw=32, ts=16, max_tiles=16):
     si = surfel.surfel_inputs(means, shs, opa, scales, quats, cam, 1, ts,
                               max_tiles, 256, enum_tiles=max_tiles)
     table = surfel.pack_surfel_table(*si.attrs)
-    ids, _, starts, counts = si.bins
+    ids, _, _, starts, counts = si.bins
     return (table, ids, starts, counts, si.planes, *si.dims), si
 
 
@@ -369,3 +370,71 @@ def test_cuda_surfel_bwd_matches_plain_and_repeats(cuda_device, ts, mode):
     scale = ref.abs().amax(dim=0).clamp(min=1e-30)
     assert float(scale.min()) > 0
     torch.testing.assert_close(out / scale, ref / scale, atol=5e-5, rtol=0)
+
+
+
+# --------------------------------------------------------------------------
+# the slot reductions: reduce_slots (TPU pallas_reduce_slots) and
+# transpose_rows (TPU pallas_transpose16)
+# --------------------------------------------------------------------------
+
+
+def _slot_rows(n, d, w, seed, dev="cpu"):
+    rng = np.random.default_rng(seed)
+    rows = rng.normal(size=(n * d, w)).astype(np.float32)
+    rows[rng.uniform(size=n * d) < 0.3] = 0.0      # dead slots are zero rows
+    return torch.as_tensor(rows, device=dev)
+
+
+def test_reduce_and_transpose_plain_versions():
+    """``reduce_slots_plain`` adds each group's rows in order (bitwise a
+    left-to-right loop; equal to ``sum(1)`` to rounding);
+    ``transpose_rows_plain`` is ``.t()`` exactly; the wrappers take the
+    plain versions on the CPU and check their inputs."""
+    rows = _slot_rows(37, 9, 10, seed=1)
+    red = kernels.reduce_slots(rows, 37, 9)
+    loop = rows.view(37, 9, 10)[:, 0]
+    for k in range(1, 9):
+        loop = loop + rows.view(37, 9, 10)[:, k]
+    assert torch.equal(red, loop)
+    torch.testing.assert_close(red, rows.view(37, 9, 10).sum(1), atol=1e-5, rtol=0)
+    assert torch.equal(kernels.reduce_slots(rows[:37], 37, 1), rows[:37])
+    cols = _slot_rows(1, 19, 50, seed=2)
+    assert torch.equal(kernels.transpose_rows(cols), cols.t())
+    assert kernels.launch_counts["reduce_slots"] == 0     # CPU: no launch
+    assert kernels.launch_counts["transpose_rows"] == 0
+    with pytest.raises(ValueError, match="n·d"):
+        kernels.reduce_slots(rows, 36, 9)
+    with pytest.raises(ValueError, match="float32"):
+        kernels.reduce_slots(rows.double(), 37, 9)
+    with pytest.raises(ValueError, match="float32"):
+        kernels.transpose_rows(cols[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [2, 10, 12, 19])
+def test_cuda_reduce_slots_matches_plain(cuda_device, w):
+    """The CUDA segmented sum bitwise equal to its plain version at the
+    widths the backwards write (3DGS 12 / 10 / 2, surfels 19 / 2), at a
+    scene-B size and at a ragged small one."""
+    for n, d in ((262_144, 9), (1000, 4)):
+        rows = _slot_rows(n, d, w, seed=w, dev=cuda_device)
+        before = kernels.launch_counts["reduce_slots"]
+        out = kernels.reduce_slots(rows, n, d)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts["reduce_slots"] == before + 1
+        assert torch.equal(out, kernels.reduce_slots_plain(rows, n, d))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [2, 10, 12, 19, 40])
+def test_cuda_transpose_rows_matches_plain(cuda_device, w):
+    """The CUDA transpose bitwise equal to its plain version, (w, M) with M
+    a multiple of the tile and not, and w above one tile's 32 rows."""
+    for M in (262_144, 1001):
+        cols = _slot_rows(1, w, M, seed=w, dev=cuda_device)
+        before = kernels.launch_counts["transpose_rows"]
+        out = kernels.transpose_rows(cols)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts["transpose_rows"] == before + 1
+        assert torch.equal(out, kernels.transpose_rows_plain(cols))

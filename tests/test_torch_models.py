@@ -213,16 +213,16 @@ def test_coarse_network_matches_jax():
 
 
 def test_unported_paths_raise():
-    """The paths not ported yet raise and name their ROADMAP items: the
-    isolated selection closure (``share_selection=False``), the bf16 policy
-    and evaluation with finetuning (``with_ft``).  The 2DGS renderer is
-    ported and builds (``tests/test_torch_fine_2dgs.py`` runs it)."""
+    """The paths not ported yet raise and name their ROADMAP items: the bf16
+    policy and evaluation with finetuning (``with_ft``).  The isolated
+    selection closure (``share_selection=False``) and the 2DGS renderer are
+    ported and build (``tests/test_torch_train_select*.py`` and
+    ``tests/test_torch_fine_2dgs.py`` run them)."""
     from generativedensification_torch.eval.evaluation import config_from_args, main
 
     net = tnet.Network(tnet.NetworkConfig(**TINY, share_selection=False), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 4"):
-        net(t_probe(1, 4, 64, 64, 2, device="cpu"), with_fine=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert not net.cfg.share_selection
+    with pytest.raises(NotImplementedError, match="ROADMAP slice 5"):
         tnet.Network(tnet.NetworkConfig(**TINY, compute_dtype="bfloat16"), device="cpu")
     assert tnet.Network(tnet.NetworkConfig(**TINY, renderer="2dgs"),
                         device="cpu").cfg.renderer == "2dgs"

@@ -237,7 +237,8 @@ def test_composite_surfels_backward_matches_jax(ts):
     table = tsur.pack_surfel_table(*t_args[:5], t_args[5], t_args[6], t_args[7],
                                    t_args[8])
     planes = torch.tensor([0.2, 4.0])
-    bins_t = (bins.sorted_ids, bins.sorted_o, bins.tile_starts, counts)
+    bins_t = (bins.sorted_ids, bins.sorted_o, bins.depth_order, bins.tile_starts,
+              counts)
     with torch.inference_mode():
         out = tsur.surfel_fwd(table, bins.sorted_ids, bins.tile_starts, counts,
                               planes, tx, ty, ts)
