@@ -20,6 +20,16 @@ Drives ``generativedensification_torch`` only (no JAX):
    three modes (each per-slot gradient array scaled by its max |value|,
    atol 5e-5), checks that two launches give bitwise the same output, and
    times each mode;
+4b. probe phase (kernels #1 and #3 by stage, TPU kernels #7-#10): the
+   breakdown entry points ``tools.kernel_break`` (every variant of
+   ``probe_kernels.composite_fwd_probe``) on scenes A and B and
+   ``tools.surfel_break`` (every surfel variant) on A' (the surfel form of
+   scene A) and B', each variant bitwise against its plain version and,
+   where its output is the production output, against the production
+   kernel, timed with CUDA events; the stage tables and trip counts; then
+   ``kernel_break --bwd`` (the compositor's backward path by stage) on
+   scene A; every variant must launch (the counts set to 0 just before
+   and read just after), and every later phase launches none;
 5. coarse phase: the full-width network (ViT-B/16, 12-layer volume
    transformer, 64³ Gaussians) from seeded weights on
    ``make_probe_batch(B=1, V_total=8, 512², n_views=4)``,
@@ -74,7 +84,6 @@ from __future__ import annotations
 import importlib.metadata
 import json
 import statistics
-import subprocess
 import sys
 import time
 import warnings
@@ -83,38 +92,6 @@ import numpy as np
 
 ATOL = 2e-4
 GRAD_ATOL = 5e-5              # per array, after scaling by its max |value|
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
-F32_OPS_PER_S = 67e12         # f32 outside the tensor cores
-# operations per (slot, live pixel) evaluation of a compositor: 2 diffs,
-# 7 products/sums of the power form, clamp, exp, opacity product, alpha
-# clamp, the 1/255 compare
-OPS_PER_EVAL = 17
-# per contributing pair, forward: 1 - alpha, U, the 1e-4 compare, w, and 4
-# multiply-adds into color and depth
-OPS_PER_CONTRIB = 12
-# per contributing pair, backward: the forward's 4, contrib (7), the prefix
-# (2), suffix, max + reciprocal, g_alpha (3), g_power (2), gx and gy (8) =
-# 29, then the mode's row sums: |gx|, |gy| (4); full adds the ten signed
-# rows (21); noabs has only those
-OPS_PER_CONTRIB_BWD = {"full": 54, "noabs": 50, "selonly": 33}
-# the surfel kernels (csrc/surfel_fwd.cu, csrc/surfel_bwd.cu): the circle
-# test per (slot, live pixel) is 2 differences, 3 products/sums and a
-# compare; inside the circle, the three affine cr rows (12), the |cr_z|
-# guard (3), the reciprocal, u, v, the object-space power (4), the filter
-# power, the max (2), z, exp, the opacity product, the alpha clamp and two
-# compares = 31; per contribution, forward: 1 - alpha, U, the 1e-4 compare,
-# the median crossing (3), w, six color/normal and one depth multiply-add
-# (14), the mapped depth (4), w·m and three moment sums (5) = 30; backward
-# selonly: the chain (4), cw (5), prefix (2), the clamped reciprocal (2),
-# g_alpha (4), g_power (2), the branch selects (2), rz², d cr (10), the
-# filter terms (4), the guard, the two screen rows (14) and their abs sums
-# (4) = 55; full: the chain (4), cw with the distortion terms (25), prefix,
-# reciprocal, g_alpha, g_power, selects, rz², d cr (19), the filter terms
-# (4), dL/dm, dm/dz, the crossing and gz (14), the z term of d cr_z (3),
-# the guard, 13 row products and 19 row sums = 106
-SURFEL_OPS_PER_EVAL = 6
-SURFEL_OPS_PER_INSIDE = 31
-SURFEL_OPS_PER_CONTRIB = {"fwd": 30, "selonly": 55, "full": 106}
 # surfel-map pixels that may differ card vs CPU beyond ATOL: a surfel seen
 # nearly edge-on has its ray-plane depth z = det / cr_z near a pole, and
 # cross-device rounding of its coefficients can move z across the z > 0.2
@@ -140,65 +117,17 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2, before=None) -> float:
-    """Median device time of ``fn()`` over ``reps`` calls (CUDA events);
-    ``before()``, if given, runs ahead of each call outside the timing."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        if before is not None:
-            before()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
-def bound(n_bytes: int, ops: int) -> dict:
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
-    return dict(bytes=n_bytes, ops=ops, bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes > t_ops else "operations")
-
-
-def compositor_inputs(means, shs, opa, scales, quats, cam, tile_size,
-                      max_tiles, max_per_tile):
-    """Project + bin one view with the port's own functions; returns the
-    kernels' inputs and the pairs the budgets dropped."""
-    import torch
-
-    from generativedensification_torch.core.transforms import normalize_quat
-    from generativedensification_torch.splat.binning import bin_gaussians
-    from generativedensification_torch.splat.composite import pack_table
-    from generativedensification_torch.splat.projection import project_gaussians
-
-    proj = project_gaussians(means, shs, opa, cam, 1, scales,
-                             normalize_quat(quats))
-    bins = bin_gaussians(proj, cam.height, cam.width, tile_size=tile_size,
-                         max_tiles=max_tiles)
-    opa_eff = torch.where(proj.valid, proj.opacity, torch.zeros_like(proj.opacity))
-    table = pack_table(proj.xy, proj.conic, proj.color, opa_eff, proj.depth,
-                       proj.valid)
-    counts = torch.clamp(bins.tile_counts, max=min(max_per_tile,
-                                                   means.shape[0] * max_tiles))
-    overflow = int(bins.overflow) + int((bins.tile_counts - counts).sum())
-    args = (table, bins.sorted_ids, bins.tile_starts, counts, bins.tiles_x,
-            bins.tiles_y, tile_size)
-    return args, overflow
-
-
 def kernel_record(name: str, args, overflow: int) -> dict:
     """Kernel #1 vs plain on one scene: agreement, times and the bound."""
     import torch
 
     from generativedensification_torch.splat import kernels
+    from generativedensification_torch.tools.timing import (
+        OPS_PER_CONTRIB,
+        OPS_PER_EVAL,
+        bound,
+        cuda_ms,
+    )
 
     table, ids, starts, counts, tiles_x, tiles_y, ts = args
     out = kernels.composite_fwd(*args)
@@ -238,6 +167,12 @@ def bwd_records(args, gt) -> dict:
         _bwd_common,
         _images,
         mse_image_cotangent,
+    )
+    from generativedensification_torch.tools.timing import (
+        OPS_PER_CONTRIB_BWD,
+        OPS_PER_EVAL,
+        bound,
+        cuda_ms,
     )
 
     table, ids, starts, counts, tiles_x, tiles_y, ts = args
@@ -282,50 +217,19 @@ def bwd_records(args, gt) -> dict:
     return recs
 
 
-def bench_scene(dev):
-    """``bench.py``'s scene (512², 131,072 Gaussians, seed 0)."""
-    import torch
-
-    from generativedensification_torch.core.camera import Camera
-
-    rng = np.random.default_rng(0)
-    n = 131072
-    f = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
-    means = f(rng.uniform(-0.45, 0.45, size=(n, 3)))
-    shs = f(rng.normal(size=(n, 4, 3)) * 0.3 + 0.2)
-    opa_raw = f(rng.normal(size=(n,)) - 1.0)
-    scale_raw = f(rng.uniform(np.log(0.002), np.log(0.01), size=(n, 3)))
-    quats = f(rng.normal(size=(n, 4)))
-    c2w = np.eye(4, dtype=np.float32)
-    c2w[2, 3] = -1.9
-    cam = Camera.from_c2w(f(c2w), 0.8, 0.8, 512, 512, znear=0.1, zfar=10.0)
-    return compositor_inputs(means, shs, torch.sigmoid(opa_raw),
-                             torch.exp(scale_raw), quats, cam, 32, 4, 4096)
-
-
-def surfel_kernel_inputs(means, shs, opa, scales2d, quats, cam, tile_size,
-                         max_tiles, max_per_tile):
-    """Set up and bin one view's surfels with the port's own functions (the
-    part of ``rasterize_surfels`` before compositing); returns the kernels'
-    inputs and the ``SurfelInputs`` record."""
-    from generativedensification_torch.splat.surfel import (
-        pack_surfel_table,
-        surfel_inputs,
-    )
-
-    si = surfel_inputs(means, shs, opa, scales2d, quats, cam, 1, tile_size,
-                       max_tiles, max_per_tile)
-    table = pack_surfel_table(*si.attrs)
-    ids, _, _, starts, counts = si.bins
-    return (table, ids, starts, counts, si.planes, *si.dims), si
-
-
 def surfel_fwd_record(name: str, args, si) -> dict:
     """Kernel #3 vs plain on one scene: agreement per output row, times and
     the bound."""
     import torch
 
     from generativedensification_torch.splat import surfel_kernels as sk
+    from generativedensification_torch.tools.timing import (
+        SURFEL_OPS_PER_CONTRIB,
+        SURFEL_OPS_PER_EVAL,
+        SURFEL_OPS_PER_INSIDE,
+        bound,
+        cuda_ms,
+    )
 
     table, ids, starts, counts, planes, tiles_x, tiles_y, ts = args
     out = sk.surfel_fwd(*args)
@@ -367,6 +271,13 @@ def surfel_bwd_records(args, si, gt) -> dict:
     from generativedensification_torch.splat import surfel
     from generativedensification_torch.splat import surfel_kernels as sk
     from generativedensification_torch.splat.composite import mse_image_cotangent
+    from generativedensification_torch.tools.timing import (
+        SURFEL_OPS_PER_CONTRIB,
+        SURFEL_OPS_PER_EVAL,
+        SURFEL_OPS_PER_INSIDE,
+        bound,
+        cuda_ms,
+    )
 
     table, ids, starts, counts, planes, tiles_x, tiles_y, ts = args
     bg = torch.ones(3, device=table.device)
@@ -410,28 +321,6 @@ def surfel_bwd_records(args, si, gt) -> dict:
                           live_pairs=live, **bound(n_bytes, ops))
         print(f"[kernel] surfel_bwd {json.dumps(recs[mode])}")
     return recs
-
-
-def surfel_scene(dev):
-    """A small surfel scene: 256², 20,000 surfels (the JAX surfel parity
-    scene's distributions, ``tests/test_pallas_surfel.py``), seed 0."""
-    import torch
-
-    from generativedensification_torch.core.camera import Camera
-    from generativedensification_torch.core.transforms import normalize_quat
-
-    rng = np.random.default_rng(0)
-    n = 20000
-    f = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
-    means = f(rng.uniform(-0.35, 0.35, size=(n, 3)))
-    shs = f(rng.normal(size=(n, 4, 3)) * 0.3 + 0.2)
-    opa = torch.sigmoid(f(rng.normal(size=(n,))))
-    scales = f(np.exp(rng.uniform(np.log(0.01), np.log(0.03), size=(n, 2))))
-    quats = normalize_quat(f(rng.normal(size=(n, 4))))
-    c2w = np.eye(4, dtype=np.float32)
-    c2w[2, 3] = -1.6
-    cam = Camera.from_c2w(f(c2w), 0.8, 0.8, 256, 256, znear=0.2, zfar=4.0)
-    return surfel_kernel_inputs(means, shs, opa, scales, quats, cam, 32, 4, 4096)
 
 
 def check_outputs(out, B, V_total, H, W, N, fine_n=None, surfels=False):
@@ -916,6 +805,7 @@ def reduction_records(captured: dict, label: str) -> dict:
     import torch
 
     from generativedensification_torch.splat import kernels
+    from generativedensification_torch.tools.timing import bound, cuda_ms
 
     recs = {}
     dev = next(iter(captured.values()))[0].device
@@ -1005,18 +895,6 @@ def train_phase(renderer: str, batch, expect: dict, device=None) -> dict:
     del net, captured
     torch.cuda.empty_cache()
     return dict(rec, apos=apos, reductions=reductions)
-
-
-def fine_config(**over):
-    """The serving configuration: the infer defaults (``mask_pool`` 262144)
-    in f32, built without PyYAML."""
-    from generativedensification_torch.config import default_infer_config
-
-    cfg = default_infer_config()
-    cfg.set_dotted("tpu.compute_dtype", "float32")
-    for k, v in over.items():
-        cfg.set_dotted(k, v)
-    return cfg
 
 
 def tiny_card_vs_cpu(renderer: str = "3dgs", seed: int = 35):
@@ -1124,6 +1002,43 @@ def tiny_card_vs_cpu(renderer: str = "3dgs", seed: int = 35):
                 fine_end_to_end_shares=end_to_end)
 
 
+def probe_phase() -> dict:
+    """The stage probes of kernels #1 and #3 (TPU kernels #7-#10) through
+    their breakdown entry points, with the launch counts set to 0 just
+    before and read just after: every variant of ``tools.kernel_break`` on
+    scenes A and B and of ``tools.surfel_break`` on A′ and B′, each held
+    bitwise against its plain version and, where its output is the
+    production output, against the production kernel (the tools fail
+    otherwise); then ``kernel_break --bwd`` on scene A.  Fails unless every
+    variant launched."""
+    from generativedensification_torch.splat import kernels
+    from generativedensification_torch.splat import probe_kernels as pk
+    from generativedensification_torch.tools import kernel_break, surfel_break
+
+    kernels.reset_launch_counts()
+    for k in pk.variant_launches:
+        pk.variant_launches[k] = 0
+    t0 = time.perf_counter()
+    runs = {}
+    for scene in ("A", "B"):
+        print(f"[probes] kernel_break --scene {scene}")
+        runs[f"3dgs_{scene}"] = kernel_break.run([*pk.COMPOSITE_VARIANTS,
+                                                 "--scene", scene])
+        print(f"[probes] surfel_break --scene {scene}")
+        runs[f"2dgs_{scene}"] = surfel_break.run(["--scene", scene])
+    print("[probes] kernel_break --bwd --scene A")
+    runs["bwd_A"] = kernel_break.run(["--bwd", "--scene", "A"])
+    launches = {f"{kind}:{v}": n for (kind, v), n in pk.variant_launches.items()}
+    totals = {k: kernels.launch_counts[k] for k in ("composite_fwd_probe",
+                                                     "surfel_fwd_probe")}
+    idle = [k for k, n in launches.items() if n == 0]
+    if idle:
+        fail(f"probe variants never launched by the breakdowns: {idle}")
+    print(f"[probes] launches {json.dumps(totals)} in "
+          f"{time.perf_counter() - t0:.1f}s; per variant {json.dumps(launches)}")
+    return dict(runs=runs, launches=launches, totals=totals)
+
+
 def main() -> int:
     import torch
 
@@ -1138,6 +1053,8 @@ def main() -> int:
     from generativedensification_torch.data.synthetic import make_probe_batch
     from generativedensification_torch.eval import evaluation
     from generativedensification_torch.splat import kernels
+    from generativedensification_torch.splat import probe_kernels as pk
+    from generativedensification_torch.tools import scenes, timing
     from generativedensification_torch.utils.device import resolve_device
 
     def expect(**launches):
@@ -1145,10 +1062,7 @@ def main() -> int:
         return {**dict.fromkeys(kernels.launch_counts, 0), **launches}
 
     # -- 1. the card
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    card = smi.splitlines()[0]
+    card = timing.card()
     dev = resolve_device(None)
     print(card)
     try:
@@ -1172,11 +1086,11 @@ def main() -> int:
 
     # -- 3. kernel #1, scene A: bench.py's scene
     with torch.inference_mode():
-        args, overflow = bench_scene(dev)
+        args, overflow, _ = scenes.bench_scene(dev)
         bench_rec = kernel_record("bench_512_131k", args, overflow)
 
     # the full-width serving network from the infer configuration
-    cfg = NetworkConfig.from_config(fine_config())
+    cfg = NetworkConfig.from_config(scenes.fine_config())
     t0 = time.perf_counter()
     net = Network(cfg, seed=0)
     net.eval()
@@ -1194,14 +1108,13 @@ def main() -> int:
         check_outputs(out, 1, V_TOTAL, HW, HW, n_coarse, n_fine)
 
         # -- 3/4. scene B: the model's 262,144 coarse Gaussians in view 0
-        centers, shs_c, opacity_c, scaling_c, rotation_c = out["render_pkg"][0]
         cam = net._cameras_all(batch)[0][0]
-        args, overflow = compositor_inputs(
-            centers[0], shs_c[0], torch.sigmoid(opacity_c[0, :, 0]),
-            torch.exp(scaling_c[0]), rotation_c[0], cam, cfg.tile_size,
-            cfg.max_tiles, cfg.max_per_tile)
+        args, overflow, _ = scenes.model_gaussians(out["render_pkg"][0], cam, cfg)
         model_rec = kernel_record("model_512_262k_view0", args, overflow)
         bwd_recs = bwd_records(args, batch["tar_rgb"][0, 0])
+
+        # -- probes: the stage breakdowns of kernels #1 and #3 (#7-#10)
+        probes = probe_phase()
 
         # -- 5. the coarse path
         out_c, times_c, launches_c, peak_c = timed_forwards(
@@ -1236,7 +1149,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 7. the 2DGS serving path: the same weights with tpu.renderer=2dgs
-    cfg2 = NetworkConfig.from_config(fine_config(**{"tpu.renderer": "2dgs"}))
+    cfg2 = NetworkConfig.from_config(scenes.fine_config(**{"tpu.renderer": "2dgs"}))
     net2 = Network(cfg2, seed=0)
     net2.eval()
     with torch.inference_mode():
@@ -1245,13 +1158,9 @@ def main() -> int:
         check_outputs(out2, 1, V_TOTAL, HW, HW, n_coarse, n_fine, surfels=True)
         # kernel #3 on a small scene, then #3 and #4 on scene B': the model's
         # 262,144 coarse surfels in view 0 (the shapes the main path gives)
-        sargs, si = surfel_scene(dev)
+        sargs, si = scenes.surfel_scene(dev)
         surfel_small_rec = surfel_fwd_record("surfels_256_20k", sargs, si)
-        centers, shs_c, opacity_c, scaling_c, rotation_c = out2["render_pkg"][0]
-        sargs, si = surfel_kernel_inputs(
-            centers[0], shs_c[0], torch.sigmoid(opacity_c[0, :, 0]),
-            torch.exp(scaling_c[0])[:, :2], rotation_c[0], cam, cfg2.tile_size,
-            cfg2.max_tiles, cfg2.max_per_tile)
+        sargs, si = scenes.model_surfels(out2["render_pkg"][0], cam, cfg2)
         surfel_rec = surfel_fwd_record("model_512_262k_view0_surfels", sargs, si)
         surfel_bwd_recs = surfel_bwd_records(sargs, si, batch["tar_rgb"][0, 0])
         out_s, times_s, launches_s, peak_s = timed_forwards(
@@ -1289,7 +1198,7 @@ def main() -> int:
     evals = {}
     for renderer in ("3dgs", "2dgs"):
         t0 = time.perf_counter()
-        result = evaluation.main(fine_config(**{
+        result = evaluation.main(scenes.fine_config(**{
             "infer.dataset.dataset_name": "synthetic", "infer.dataset.n_scenes": 2,
             "infer.save_images": 0, "tpu.renderer": renderer}))
         eval_s = time.perf_counter() - t0
@@ -1381,6 +1290,37 @@ def main() -> int:
             "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         })
+    # the probes, each with one variant at scene A / A′ (the others are in
+    # the breakdowns above) and its launches in the breakdown run
+    for name, kind, variant, replaces in (
+            ("composite_fwd_probe:trans", "3dgs", "trans", "dev_kernel_break.py:207"),
+            ("composite_fwd_probe:full_bulk", "3dgs", "full_bulk",
+             "dev_kernel_break.py:308"),
+            ("composite_fwd_probe:tpb2", "3dgs", "tpb2", "dev_kernel_break.py:401"),
+            ("surfel_fwd_probe:acc", "2dgs", "acc", "dev_surfel_break.py:206")):
+        r = next(x for x in probes["runs"][f"{kind}_A"]["stages"]
+                 if x["variant"] == variant)
+        if kind == "2dgs":
+            n = sum(v for k, v in probes["launches"].items() if k.startswith("surfel:"))
+        else:
+            tpu = pk.TPU_KERNEL[variant]
+            n = sum(v for k, v in probes["launches"].items() if k.startswith("composite:")
+                    and pk.TPU_KERNEL[k.split(":")[1]] == tpu)
+        recs.append({
+            "name": name,
+            "route": "cuda",
+            "source": "generativedensification_torch/csrc/"
+                      + ("surfel_fwd_probe.cu" if kind == "2dgs"
+                         else "composite_fwd_probe.cu"),
+            "replaces": f"scripts/{replaces}",
+            "launches": n,
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": None,
+        })
     print(json.dumps({
         "coarse": {"forward_ms": coarse_ms, "forward_runs_ms": times_c,
                    "launches": launches_c, "breakdown_ms": split_c,
@@ -1398,7 +1338,7 @@ def main() -> int:
         "train": train, "eval": evals, "tiny": tiny, "pyyaml": has_yaml,
         "scenes": [bench_rec, model_rec], "composite_bwd": bwd_recs,
         "surfel_scenes": [surfel_small_rec, surfel_rec],
-        "surfel_bwd": surfel_bwd_recs}))
+        "surfel_bwd": surfel_bwd_recs, "probes": probes}))
     print(card)
     print(json.dumps({"kernels": recs}))
     print(json.dumps({"ok": True, "device": {

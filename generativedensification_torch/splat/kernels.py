@@ -8,12 +8,14 @@ Replaces ``generativedensification_tpu/splat/pallas_kernels.py``'s
 (``csrc/reduce_slots.cu``) and ``pallas_transpose16``
 (``csrc/transpose_rows.cu``).  The 2DGS surfel kernels
 (``csrc/surfel_fwd.cu``, ``csrc/surfel_bwd.cu``) have their wrappers in
-``surfel_kernels.py`` and are registered here too, so that ``build()``
-compiles all six sources and ``launch_counts`` counts every launch.  Each
-source is built with ``nvcc`` for ``sm_90a`` into a plain-C shared library at
-first use (all sources compiled at once, one ``nvcc`` each) and loaded with
-``ctypes``; nothing is compiled or imported for them when this module is
-imported.
+``surfel_kernels.py`` and the stage probes of the two forwards
+(``csrc/composite_fwd_probe.cu``, ``csrc/surfel_fwd_probe.cu``) in
+``probe_kernels.py``; all are registered here, so that ``build()`` compiles
+every source and ``launch_counts`` counts every launch.  Each source is
+built with ``nvcc`` for ``sm_90a`` into a plain-C shared library at first
+use (the sources asked for compiled at once, one ``nvcc`` each) and loaded
+with ``ctypes``; nothing is compiled or imported for them when this module
+is imported.
 
 ``composite_fwd``, ``composite_bwd``, ``reduce_slots`` and ``transpose_rows``
 are the entries: tensors on the card launch the kernel (or raise), tensors on
@@ -64,10 +66,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# launches of each kernel of this module; a wrapper adds one where it
+# launches of each kernel of the port; a wrapper adds one where it
 # launches, and nowhere else
 launch_counts = {"composite_fwd": 0, "composite_bwd": 0, "surfel_fwd": 0,
-                 "surfel_bwd": 0, "reduce_slots": 0, "transpose_rows": 0}
+                 "surfel_bwd": 0, "reduce_slots": 0, "transpose_rows": 0,
+                 "composite_fwd_probe": 0, "surfel_fwd_probe": 0}
 
 
 def reset_launch_counts() -> None:
@@ -98,7 +101,15 @@ _libraries = {
     "surfel_bwd": _Library("surfel_bwd", [_P] * 8 + [_I] * 4 + [_P]),
     "reduce_slots": _Library("reduce_slots", [_P] * 2 + [_I] * 3 + [_P]),
     "transpose_rows": _Library("transpose_rows", [_P] * 2 + [_I] * 2 + [_P]),
+    "composite_fwd_probe": _Library("composite_fwd_probe",
+                                    [_I] + [_P] * 5 + [_I] * 3 + [_P]),
+    "surfel_fwd_probe": _Library("surfel_fwd_probe",
+                                 [_I] + [_P] * 6 + [_I] * 3 + [_P]),
 }
+# the kernels that serving and training run; the probes build only when a
+# breakdown asks for them
+MAIN_KERNELS = ("composite_fwd", "composite_bwd", "surfel_fwd", "surfel_bwd",
+                "reduce_slots", "transpose_rows")
 
 
 def _nvcc() -> str:
@@ -109,20 +120,24 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def build() -> dict[str, _Library]:
-    """Compile every source of ``csrc/`` (once per source and flag set) into
-    ``build/``, all ``nvcc`` processes started together, and load them.
-    Returns the library records by kernel name, each with its build time
-    and nvcc's ``-Xptxas -v`` report (registers, shared memory, spills)."""
-    todo = [lib for lib in _libraries.values() if lib.lib is None]
+def build(names=None) -> dict[str, _Library]:
+    """Compile the sources of ``csrc/`` that ``names`` lists (every one by
+    default; once per content and flag set) into ``build/``, all ``nvcc``
+    processes started together, and load them.  Returns the library records
+    by kernel name, each with its build time and nvcc's ``-Xptxas -v``
+    report (registers, shared memory, spills)."""
+    todo = [lib for name, lib in _libraries.items()
+            if lib.lib is None and (names is None or name in names)]
     if not todo:
         return _libraries
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # the shared kernel bodies are part of every source that includes them
+    headers = b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
     t0 = time.perf_counter()
     procs = []
     try:
         for lib in todo:
-            src = lib.src.read_bytes()
+            src = lib.src.read_bytes() + headers
             tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
             lib.path = _BUILD_DIR / f"{lib.name}_{tag}.so"
             if not lib.path.exists():
@@ -192,7 +207,7 @@ def composite_fwd(table, sorted_ids, tile_starts, tile_counts,
     if dev.type != "cuda":
         raise ValueError(f"composite_fwd: unsupported device {dev}")
     _check_cuda(tile_size, table, sorted_ids, tile_starts, tile_counts)
-    lib = build()["composite_fwd"].lib
+    lib = build(MAIN_KERNELS)["composite_fwd"].lib
     out = torch.empty((num_tiles, OUT_ROWS, tile_size * tile_size),
                       dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -309,7 +324,7 @@ def composite_bwd(table, sorted_ids, tile_starts, tile_counts, gc4, g2,
     if dev.type != "cuda":
         raise ValueError(f"composite_bwd: unsupported device {dev}")
     _check_cuda(tile_size, table, sorted_ids, tile_starts, tile_counts, gc4, g2)
-    lib = build()["composite_bwd"].lib
+    lib = build(MAIN_KERNELS)["composite_bwd"].lib
     out = torch.zeros((sorted_ids.shape[0], BWD_ROWS[mode]),
                       dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -455,7 +470,7 @@ def reduce_slots(rows, n: int, d: int) -> torch.Tensor:
     if rows.device.type == "cpu":
         return reduce_slots_plain(rows, n, d)
     dev = _cuda_ready("reduce_slots", rows)
-    lib = build()["reduce_slots"].lib
+    lib = build(MAIN_KERNELS)["reduce_slots"].lib
     w = rows.shape[1]
     out = torch.empty((n, w), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -483,7 +498,7 @@ def transpose_rows(cols) -> torch.Tensor:
     if cols.device.type == "cpu":
         return transpose_rows_plain(cols)
     dev = _cuda_ready("transpose_rows", cols)
-    lib = build()["transpose_rows"].lib
+    lib = build(MAIN_KERNELS)["transpose_rows"].lib
     w, M = cols.shape
     out = torch.empty((M, w), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):

@@ -71,7 +71,7 @@ def _check_inputs(table, sorted_ids, tile_starts, tile_counts, planes,
 
 
 def _launch(name, *args):
-    err = getattr(build()[name].lib, f"gd_{name}")(*args)
+    err = getattr(build(kernels.MAIN_KERNELS)[name].lib, f"gd_{name}")(*args)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     launch_counts[name] += 1
