@@ -9,18 +9,27 @@ Drives ``generativedensification_torch`` only (no JAX):
    CUDA versions and both TF32 flags;
 2. builds every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, all
    started together) and prints the build time and ``-Xptxas -v``
-   registers / shared memory;
-3. kernel #1 phase: holds the forward compositor against its plain PyTorch
-   version (atol 2e-4 on color, depth and alpha) on the ``bench.py`` scene
-   (512², 131,072 Gaussians, seed 0) and on the 262,144 coarse Gaussians of
-   the full-width model (scene B, view 0), and times both with CUDA events
-   (median of >= 20 kernel calls);
-4. kernel #2 phase: on scene B with the batch's view-0 image as ground
-   truth, holds the compositing backward against its plain version in all
-   three modes (each per-slot gradient array scaled by its max |value|,
-   atol 5e-5), checks that two launches give bitwise the same output, and
-   times each mode;
-4b. probe phase (kernels #1 and #3 by stage, TPU kernels #7-#10): the
+   registers / shared memory; fails if kernel #1 or #2 spills;
+3. kernel #1 phase: holds the forward compositor bitwise
+   (``torch.equal``) against its plain PyTorch version and against the
+   one-CTA-per-tile design it replaced (probe ``full``) on the ``bench.py`` scene A (512², 131,072
+   Gaussians, seed 0), on the adversarial scene of the footprint skip
+   (``tools/scenes.py``, 256², 32 and 16 px tiles), and on the 262,144
+   coarse Gaussians of the full-width model (scene B, view 0) with the
+   serving budgets and with the 3DGS warmup budgets; prints the skip's kept
+   share of (slot, sub-tile) pairs and the evaluations it leaves (from the
+   plain mirror ``kernels.subtile_touch``), and times the kernel, the
+   one-CTA-per-tile design and the plain version with CUDA events (median of >= 20 kernel
+   calls);
+4. kernel #2 phase: on the same scenes (scene B with the batch's view-0
+   image as ground truth, a seeded image elsewhere), holds the compositing
+   backward against its plain version in all three modes (each per-slot
+   gradient array scaled by its max |value|, atol 5e-5), checks that two
+   launches give bitwise the same output, and times each mode;
+4b. probe phase (kernels #1 and #3 by stage, TPU kernels #7-#10; #1's
+   ladder is its earlier one-CTA-per-tile design, and ``sub_noexit`` /
+   ``sub_noskip`` the production sub-tile kernel without its per-sub-tile
+   exit or its footprint skip): the
    breakdown entry points ``tools.kernel_break`` (every variant of
    ``probe_kernels.composite_fwd_probe``) on scenes A and B and
    ``tools.surfel_break`` (every surfel variant) on A' (the surfel form of
@@ -118,48 +127,71 @@ def fail(msg: str) -> None:
 
 
 def kernel_record(name: str, args, overflow: int) -> dict:
-    """Kernel #1 vs plain on one scene: agreement, times and the bound."""
+    """Kernel #1 vs plain on one scene: bitwise agreement, the footprint
+    skip's kept share (``kernels.subtile_touch``, the plain mirror of the
+    kernel's predicate) and the evaluations it leaves, the kernel's time
+    beside the one-CTA-per-tile design's (probe ``full``, also bitwise) and the bound
+    from the evaluations the skip leaves."""
     import torch
 
     from generativedensification_torch.splat import kernels
+    from generativedensification_torch.splat import probe_kernels as pk
     from generativedensification_torch.tools.timing import (
         OPS_PER_CONTRIB,
         OPS_PER_EVAL,
         bound,
         cuda_ms,
+        once,
     )
 
     table, ids, starts, counts, tiles_x, tiles_y, ts = args
     out = kernels.composite_fwd(*args)
     torch.cuda.synchronize()
-    stats = {}
-    ref = kernels.composite_fwd_plain(*args, stats=stats)
-    err = float((out - ref).abs().max())
     if not torch.isfinite(out).all():
         fail(f"{name}: non-finite compositor output")
-    if err > ATOL:
-        fail(f"{name}: kernel vs plain max_abs_err {err} > {ATOL}")
+    ref = kernels.composite_fwd_plain(*args)
+    if not torch.equal(out, ref):
+        fail(f"{name}: kernel differs from its plain version (max |diff| "
+             f"{float((out - ref).abs().max())})")
+    touch = kernels.subtile_touch(*args)
+    stats = {}
+    mirrored, plain_ms = once(
+        lambda: kernels.composite_fwd_plain(*args, stats=stats, touch=touch), True)
+    if not torch.equal(mirrored, ref):
+        fail(f"{name}: the plain version with the skip mirrored differs")
+    per_tile = pk.composite_fwd_probe("full", *args)
+    torch.cuda.synchronize()
+    if not torch.equal(per_tile, out):
+        fail(f"{name}: the one-CTA-per-tile design (probe full) differs "
+             "from kernel #1")
     ms = cuda_ms(lambda: kernels.composite_fwd(*args), reps=25)
-    plain_ms = cuda_ms(lambda: kernels.composite_fwd_plain(*args), reps=3,
-                       warmup=1)
+    per_tile_ms = cuda_ms(lambda: pk.composite_fwd_probe("full", *args), reps=25)
     n_tiles = tiles_x * tiles_y
     npix = ts * ts
     live = int(counts.sum())
     n_bytes = table.numel() * 4 + live * 4 + 2 * n_tiles * 4 + n_tiles * 5 * npix * 4
-    ops = stats["evals"] * OPS_PER_EVAL + stats["contribs"] * OPS_PER_CONTRIB
-    rec = dict(scene=name, gaussians=table.shape[0], live_pairs=live,
+    ops = stats["evals_kept"] * OPS_PER_EVAL + stats["contribs"] * OPS_PER_CONTRIB
+    ops_all = stats["evals"] * OPS_PER_EVAL + stats["contribs"] * OPS_PER_CONTRIB
+    rec = dict(scene=name, gaussians=table.shape[0], tile_size=ts, live_pairs=live,
                overflow=overflow, evals=stats["evals"],
-               contribs=stats["contribs"], ms=ms, plain_ms=plain_ms,
-               max_abs_err=err, alpha_mean=float(out[:, 4].mean()),
+               evals_kept=stats["evals_kept"], contribs=stats["contribs"],
+               kept_share=float(touch.sum()) / max(1, live * touch.shape[0]),
+               evals_kept_share=stats["evals_kept"] / max(1, stats["evals"]),
+               ms=ms, per_tile_ms=per_tile_ms, plain_ms=plain_ms, max_abs_err=0.0,
+               bitwise=True, alpha_mean=float(out[:, 4].mean()),
+               bound_unskipped_ms=bound(n_bytes, ops_all)["bound_ms"],
                **bound(n_bytes, ops))
     print(f"[kernel] {json.dumps(rec)}")
     return rec
 
 
-def bwd_records(args, gt) -> dict:
+def bwd_records(name: str, args, gt=None) -> dict:
     """Kernel #2 vs plain in every mode on one scene, against the image-MSE
-    cotangent of ``gt`` (the selection pass's), plus seeded alpha and depth
-    cotangents so that every row of ``full`` and ``noabs`` is exercised."""
+    cotangent of ``gt`` (the selection pass's; a seeded image if None), plus
+    seeded alpha and depth cotangents so that every row of ``full`` and
+    ``noabs`` is exercised: two launches bitwise equal, scaled 5e-5 against
+    the plain version, times, and the bound from the evaluations the
+    footprint skip leaves."""
     import torch
 
     from generativedensification_torch.splat import kernels
@@ -173,6 +205,7 @@ def bwd_records(args, gt) -> dict:
         OPS_PER_EVAL,
         bound,
         cuda_ms,
+        once,
     )
 
     table, ids, starts, counts, tiles_x, tiles_y, ts = args
@@ -180,10 +213,13 @@ def bwd_records(args, gt) -> dict:
     out = kernels.composite_fwd(*args)
     image, alpha, depth = _images(out, bg, tiles_x, tiles_y, ts)
     g = torch.Generator(device=table.device).manual_seed(0)
+    if gt is None:
+        gt = torch.rand(image.shape, generator=g, device=table.device)
     noise = lambda x: 1e-7 * torch.randn(x.shape, generator=g, device=x.device)
     cot = (mse_image_cotangent(image, gt), noise(alpha), noise(depth))
     gc4, g2, _ = _bwd_common(out, bg, cot, tiles_x, tiles_y, ts)
     bargs = (table, ids, starts, counts, gc4, g2, tiles_x, tiles_y, ts)
+    touch = kernels.subtile_touch(*args)
     n_tiles = tiles_x * tiles_y
     live = int(counts.sum())
     recs = {}
@@ -192,25 +228,25 @@ def bwd_records(args, gt) -> dict:
         k2 = kernels.composite_bwd(*bargs, mode=mode)
         torch.cuda.synchronize()
         if not torch.equal(k1, k2):
-            fail(f"composite_bwd {mode}: two launches differ")
+            fail(f"composite_bwd {mode} ({name}): two launches differ")
         if not torch.isfinite(k1).all():
-            fail(f"composite_bwd {mode}: non-finite output")
+            fail(f"composite_bwd {mode} ({name}): non-finite output")
         stats = {}
-        ref = kernels.composite_bwd_plain(*bargs, mode=mode, stats=stats)
+        ref, plain_ms = once(lambda: kernels.composite_bwd_plain(
+            *bargs, mode=mode, stats=stats, touch=touch), True)
         scale = ref.abs().amax(dim=0).clamp(min=1e-30)
         err = float(((k1 - ref) / scale).abs().max())
         if err > GRAD_ATOL:
-            fail(f"composite_bwd {mode}: scaled max err {err} > {GRAD_ATOL}")
+            fail(f"composite_bwd {mode} ({name}): scaled max err {err} > {GRAD_ATOL}")
         ms = cuda_ms(lambda: kernels.composite_bwd(*bargs, mode=mode), reps=21)
-        plain_ms = cuda_ms(lambda: kernels.composite_bwd_plain(*bargs, mode=mode),
-                           reps=2, warmup=0)
         w = kernels.BWD_ROWS[mode]
         n_bytes = (table.numel() * 4 + live * 4 + 2 * n_tiles * 4
                    + gc4.numel() * 4 + g2.numel() * 4 + ids.shape[0] * w * 4)
-        ops = (stats["evals"] * OPS_PER_EVAL
+        ops = (stats["evals_kept"] * OPS_PER_EVAL
                + stats["contribs"] * OPS_PER_CONTRIB_BWD[mode])
-        recs[mode] = dict(mode=mode, ms=ms, plain_ms=plain_ms, max_scaled_err=err,
-                          bitwise_repeatable=True, evals=stats["evals"],
+        recs[mode] = dict(scene=name, mode=mode, ms=ms, plain_ms=plain_ms,
+                          max_scaled_err=err, bitwise_repeatable=True,
+                          evals=stats["evals"], evals_kept=stats["evals_kept"],
                           contribs=stats["contribs"], live_pairs=live,
                           **bound(n_bytes, ops))
         print(f"[kernel] composite_bwd {json.dumps(recs[mode])}")
@@ -1083,11 +1119,26 @@ def main() -> int:
         for line in lib.build_log.splitlines():
             if "registers" in line or "Compiling entry" in line or "spill" in line:
                 print(f"[build] {line.strip()}")
+    # the sub-tile kernels #1 and #2 must not spill
+    for name in ("composite_fwd", "composite_bwd"):
+        spills = [ln.strip() for ln in libs[name].build_log.splitlines()
+                  if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads"
+                  not in ln]
+        if spills:
+            fail(f"{name} spills registers: {spills}")
 
-    # -- 3. kernel #1, scene A: bench.py's scene
+    # -- 3. kernels #1 and #2, scene A: bench.py's scene; the adversarial
+    # scene of the footprint skip at both tile sizes
     with torch.inference_mode():
         args, overflow, _ = scenes.bench_scene(dev)
         bench_rec = kernel_record("bench_512_131k", args, overflow)
+        bwd_recs_a = bwd_records("bench_512_131k", args)
+        adversarial = {}
+        for ts in (32, 16):
+            args, overflow, _ = scenes.adversarial_scene(dev, ts)
+            label = f"adversarial_256_ts{ts}"
+            adversarial[label] = dict(fwd=kernel_record(label, args, overflow),
+                                      bwd=bwd_records(label, args))
 
     # the full-width serving network from the infer configuration
     cfg = NetworkConfig.from_config(scenes.fine_config())
@@ -1111,7 +1162,15 @@ def main() -> int:
         cam = net._cameras_all(batch)[0][0]
         args, overflow, _ = scenes.model_gaussians(out["render_pkg"][0], cam, cfg)
         model_rec = kernel_record("model_512_262k_view0", args, overflow)
-        bwd_recs = bwd_records(args, batch["tar_rgb"][0, 0])
+        bwd_recs = bwd_records("model_512_262k_view0", args, batch["tar_rgb"][0, 0])
+        # scene B at the 3DGS train step's warmup budgets
+        max_tiles, enum_tiles, max_per_tile = WARMUP_BUDGETS["3dgs"]
+        args, overflow, _ = scenes.model_gaussians(
+            out["render_pkg"][0], cam, cfg, None, max_tiles, max_per_tile, enum_tiles)
+        warm_rec = kernel_record("model_512_262k_view0_warmup", args, overflow)
+        bwd_recs_warm = bwd_records("model_512_262k_view0_warmup", args,
+                                    batch["tar_rgb"][0, 0])
+        del args
 
         # -- probes: the stage breakdowns of kernels #1 and #3 (#7-#10)
         probes = probe_phase()
@@ -1336,7 +1395,9 @@ def main() -> int:
                          "busy_wall_ms": busy_s["wall_ms"], "overflow": ov_surfel,
                          "peak_bytes": peak_s},
         "train": train, "eval": evals, "tiny": tiny, "pyyaml": has_yaml,
-        "scenes": [bench_rec, model_rec], "composite_bwd": bwd_recs,
+        "scenes": [bench_rec, model_rec, warm_rec],
+        "composite_bwd": {"A": bwd_recs_a, "B": bwd_recs, "B_warmup": bwd_recs_warm},
+        "adversarial": adversarial,
         "surfel_scenes": [surfel_small_rec, surfel_rec],
         "surfel_bwd": surfel_bwd_recs, "probes": probes}))
     print(card)

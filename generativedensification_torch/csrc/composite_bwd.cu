@@ -19,46 +19,50 @@
 // and writes one row per slot into out (P, rows).  Rows a mode does not
 // compute are not stored at all; the caller pads them with zeros.
 //
-// Design.  One CTA per tile, 256 threads, the forward kernel's pixel layout
-// (ts*ts/256 pixels per thread).  The CTA stages BATCH slots of its segment
-// in shared memory (ids gathered through sorted_ids, three 16-byte loads per
-// table row).  Every slot belongs to exactly one tile, so a slot's row is
-// owned by one CTA and written once: no atomics.  The per-slot sum over the
-// tile's pixels is taken in a fixed order (each thread over its pixels, a
-// warp shuffle tree, then the eight warp partials added in warp order from
-// shared memory), so the output is bitwise the same from run to run; the
+// Design.  The forward's front (composite_subtile.cuh): one CTA of 256
+// threads per 16 x 16 sub-tile, one pixel per thread, the tile's segment
+// staged in batches with the order-preserving footprint skip.  A 32 px tile
+// is launched as a thread-block cluster of its four sub-tile CTAs, which run
+// their batches in lockstep; a 16 px tile is a cluster of one.  Per batch:
+//   1. each CTA sums every kept slot's rows over its 256 pixels in a fixed
+//      order (a warp shuffle tree, then the eight warp partials in warp
+//      order) into its shared per-slot sums (zero for a slot it dropped);
+//   2. after a cluster barrier, CTA q sums the batch's rows q/4 .. (q+1)/4
+//      over the four CTAs in rank order through distributed shared memory
+//      and writes each of them once.
+// No atomics, so the output is bitwise the same from run to run; the
 // selection scores built from it feed a top-k, where a reordered sum could
-// flip a near-tied pick between two identical requests.  A warp whose lanes
-// have no contribution for a slot skips its shuffles.  The block leaves the
-// segment once every pixel is done (__syncthreads_count); slots past that
-// point are never written and keep the zeros the wrapper allocates.
+// flip a near-tied pick between two identical requests.  The per-slot sums
+// are double-buffered, so one cluster barrier per batch suffices.  A CTA
+// whose pixels are all done joins the barriers with zero sums; the cluster
+// leaves the segment once no pixel of the tile is alive (each CTA's count
+// of live pixels travels with its sums), and slots past that point keep the
+// zeros the wrapper allocates.
 //
 // Bound on an H100.  Bytes are small (table, live ids, the per-pixel
 // cotangent rows and the per-slot output: tens of MB at 262,144 gaussians,
 // ~0.01 ms at 3.35 TB/s).  The work is the forward's ~17-operation
-// evaluation per (slot, live pixel) plus ~25 operations per contribution
-// (selonly; ~45 in full), so the kernel is bound by f32 operations
-// (chip_smoke.py computes the bound from each run's own counts).  Every
-// operation on the per-pixel chain is an explicitly rounded intrinsic (no
-// FMA contraction) in the order of the plain PyTorch version in
+// evaluation per kept (slot, live pixel) plus ~29 operations per
+// contribution and the mode's row sums (chip_smoke.py computes the bound
+// from each run's own counts), so the kernel is bound by f32 operations.
+// Every operation on the per-pixel chain is an explicitly rounded intrinsic
+// (no FMA contraction) in the order of the plain PyTorch version in
 // splat/kernels.py.  Build without --use_fast_math: approximate exp, flushed
 // denormals or approximate division would move the alpha >= 1/255 and
 // T < 1e-4 edges.
 
-#include <cuda_runtime.h>
+#include <cooperative_groups.h>
+
+#include "composite_subtile.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int NWARPS = THREADS / 32;
-constexpr int ROW = 12;        // table row: x y a b | c opa r g | b z valid -
-constexpr float ALPHA_MAX = 0.99f;
-constexpr float ALPHA_MIN = 1.0f / 255.0f;
-constexpr float T_EPS = 1e-4f;
+namespace cg = cooperative_groups;
+using namespace subtile;
+
 // 1 - ALPHA_MAX as the JAX package rounds it: the f32 nearest 0.01, not
 // 1.0f - 0.99f (which is 0.00999999)
 constexpr float ONE_M_FLOOR = 0.01f;
-constexpr unsigned FULL_MASK = 0xffffffffu;
 
 constexpr int MODE_FULL = 0;
 constexpr int MODE_NOABS = 1;
@@ -81,185 +85,212 @@ composite_bwd_kernel(const float* __restrict__ table,
                      const float* __restrict__ g2,
                      float* __restrict__ out, int tiles_x) {
   constexpr int NPIX = TS * TS;
-  constexpr int PPT = NPIX / THREADS;
   constexpr int W = Rows<MODE>::W;
-  constexpr int BATCH = Rows<MODE>::BATCH;
-  static_assert(PPT * THREADS == NPIX, "tile must be a multiple of 256 px");
-  static_assert(BATCH <= THREADS, "one staging thread per slot");
+  constexpr int NB = Rows<MODE>::BATCH;
+  constexpr int CL = SubTile<TS>::CTAS;    // the cluster: the tile's CTAs
+  static_assert(NB <= THREADS, "one staging thread per slot");
 
-  __shared__ float s_x[BATCH], s_y[BATCH], s_a[BATCH], s_b[BATCH],
-      s_c[BATCH], s_o[BATCH], s_r[BATCH], s_g[BATCH], s_bl[BATCH], s_z[BATCH],
-      s_opa[BATCH];
-  __shared__ float s_part[NWARPS][BATCH][W];
+  __shared__ Staged<NB> s;
+  __shared__ float s_part[NWARPS][NB][W];
+  __shared__ float s_sum[2][NB * W];       // per-slot sums, double-buffered
+  __shared__ int s_live[2];                // live pixels after the batch
 
-  const int tile = blockIdx.x;
-  const int start = tile_starts[tile];
-  const int count = tile_counts[tile];
-  const float ox = static_cast<float>((tile % tiles_x) * TS);
-  const float oy = static_cast<float>((tile / tiles_x) * TS);
+  const SubTile<TS> st;
+  const int start = tile_starts[st.tile];
+  const int count = tile_counts[st.tile];
+  const float ox = static_cast<float>((st.tile % tiles_x) * TS);
+  const float oy = static_cast<float>((st.tile / tiles_x) * TS);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
-  float px[PPT], py[PPT], T[PPT], prefix[PPT], G2[PPT];
-  float gr[PPT], gg[PPT], gb[PPT], gd[PPT];
-  bool alive[PPT];
-  const float* gct = gc4 + static_cast<size_t>(tile) * 4 * NPIX;
-#pragma unroll
-  for (int i = 0; i < PPT; ++i) {
-    const int p = threadIdx.x + i * THREADS;
-    px[i] = static_cast<float>(p % TS);
-    py[i] = static_cast<float>(p / TS);
-    T[i] = 1.0f;
-    prefix[i] = 0.0f;
-    alive[i] = true;
-    gr[i] = gct[p];
-    gg[i] = gct[NPIX + p];
-    gb[i] = gct[2 * NPIX + p];
-    gd[i] = gct[3 * NPIX + p];
-    G2[i] = g2[static_cast<size_t>(tile) * NPIX + p];
-  }
+  const float* gct = gc4 + static_cast<size_t>(st.tile) * 4 * NPIX + st.p;
+  const float gr = gct[0], gg = gct[NPIX], gb = gct[2 * NPIX], gd = gct[3 * NPIX];
+  const float G2 = g2[static_cast<size_t>(st.tile) * NPIX + st.p];
+  float T = 1.0f, prefix = 0.0f;
+  bool alive = true;
+  bool cta_alive = true;
 
-  for (int base = 0; base < count; base += BATCH) {
-    int any = 0;
-#pragma unroll
-    for (int i = 0; i < PPT; ++i) any |= alive[i];
-    // barrier: the previous batch's slots and partials are fully read
-    if (__syncthreads_count(any) == 0) break;
+  for (int base = 0, buf = 0; base < count; base += NB, buf ^= 1) {
+    const int n = min(NB, count - base);
+    float* sum = s_sum[buf];
+    // this buffer was last read by the cluster two batches ago, before the
+    // barrier of the previous batch
+    for (int i = threadIdx.x; i < n * W; i += THREADS) sum[i] = 0.0f;
 
-    const int n = min(BATCH, count - base);
-    if (threadIdx.x < n) {
-      const int t = threadIdx.x;
-      const int g = sorted_ids[start + base + t];
-      const float4* row =
-          reinterpret_cast<const float4*>(table + static_cast<size_t>(g) * ROW);
-      const float4 r0 = row[0], r1 = row[1], r2 = row[2];
-      s_x[t] = __fsub_rn(r0.x, ox);      // tile-local center
-      s_y[t] = __fsub_rn(r0.y, oy);
-      s_a[t] = r0.z;
-      s_b[t] = r0.w;
-      s_c[t] = r1.x;
-      s_o[t] = r2.z > 0.0f ? r1.y : 0.0f;  // valid flag folded into opacity
-      s_opa[t] = r1.y;
-      s_r[t] = r1.z;
-      s_g[t] = r1.w;
-      s_bl[t] = r2.x;
-      s_z[t] = r2.y;
-    }
-    __syncthreads();
-
-    for (int j = 0; j < n; ++j) {
-      const float gx0 = s_x[j], gy0 = s_y[j];
-      const float a = s_a[j], b = s_b[j], c = s_c[j], opa = s_o[j];
-      const float cr = s_r[j], cg = s_g[j], cb = s_bl[j], cz = s_z[j];
-      float acc[W];
+    if (cta_alive) {
+      const int kept = stage_batch<NB, true, false>(
+          s, table, sorted_ids + start + base, n, ox, oy, st.rcx, st.rcy);
+      for (int k = 0; k < kept; ++k) {
+        float acc[W];
 #pragma unroll
-      for (int r = 0; r < W; ++r) acc[r] = 0.0f;
-      bool hit = false;
-#pragma unroll
-      for (int i = 0; i < PPT; ++i) {
-        if (!alive[i]) continue;
-        const float dx = __fsub_rn(px[i], gx0);
-        const float dy = __fsub_rn(py[i], gy0);
-        const float q = __fadd_rn(__fmul_rn(__fmul_rn(a, dx), dx),
-                                  __fmul_rn(__fmul_rn(c, dy), dy));
-        const float power = fminf(
-            __fsub_rn(__fmul_rn(-0.5f, q), __fmul_rn(__fmul_rn(b, dx), dy)),
-            0.0f);
-        const float alpha = fminf(ALPHA_MAX, __fmul_rn(opa, expf(power)));
-        if (alpha < ALPHA_MIN) continue;
-        const float one_m = __fsub_rn(1.0f, alpha);
-        const float U = __fmul_rn(T[i], one_m);
-        if (U < T_EPS) {  // done before this gaussian
-          alive[i] = false;
-          continue;
-        }
-        hit = true;
-        const float w = __fmul_rn(alpha, T[i]);
-        const float contrib = __fadd_rn(
-            __fadd_rn(__fadd_rn(__fmul_rn(gr[i], cr), __fmul_rn(gg[i], cg)),
-                      __fmul_rn(gb[i], cb)),
-            __fmul_rn(gd[i], cz));
-        prefix[i] = __fadd_rn(prefix[i], __fmul_rn(contrib, w));
-        const float suffix = __fsub_rn(G2[i], prefix[i]);
-        const float inv_1ma = __frcp_rn(fmaxf(one_m, ONE_M_FLOOR));
-        const float g_alpha = __fsub_rn(__fmul_rn(contrib, T[i]),
-                                        __fmul_rn(suffix, inv_1ma));
-        const float g_power = alpha < ALPHA_MAX ? __fmul_rn(g_alpha, alpha) : 0.0f;
-        const float gx = __fmul_rn(
-            g_power, __fadd_rn(__fmul_rn(a, dx), __fmul_rn(b, dy)));
-        const float gy = __fmul_rn(
-            g_power, __fadd_rn(__fmul_rn(c, dy), __fmul_rn(b, dx)));
-        if constexpr (MODE == MODE_SELONLY) {
-          acc[0] = __fadd_rn(acc[0], fabsf(gx));
-          acc[1] = __fadd_rn(acc[1], fabsf(gy));
-        } else {
-          const float gh = __fmul_rn(g_power, -0.5f);
-          acc[0] = __fadd_rn(acc[0], gx);
-          acc[1] = __fadd_rn(acc[1], gy);
-          acc[2] = __fadd_rn(acc[2], __fmul_rn(__fmul_rn(gh, dx), dx));
-          acc[3] = __fadd_rn(acc[3], __fmul_rn(g_power, __fmul_rn(-dx, dy)));
-          acc[4] = __fadd_rn(acc[4], __fmul_rn(__fmul_rn(gh, dy), dy));
-          acc[5] = __fadd_rn(acc[5], g_power);
-          acc[6] = __fadd_rn(acc[6], __fmul_rn(w, gr[i]));
-          acc[7] = __fadd_rn(acc[7], __fmul_rn(w, gg[i]));
-          acc[8] = __fadd_rn(acc[8], __fmul_rn(w, gb[i]));
-          acc[9] = __fadd_rn(acc[9], __fmul_rn(w, gd[i]));
-          if constexpr (MODE == MODE_FULL) {
-            acc[10] = __fadd_rn(acc[10], fabsf(gx));
-            acc[11] = __fadd_rn(acc[11], fabsf(gy));
+        for (int r = 0; r < W; ++r) acc[r] = 0.0f;
+        bool hit = false;
+        if (alive) {
+          const float a = s.a[k], b = s.b[k], c = s.c[k];
+          float dx, dy;
+          const float power = power_of(st.px, st.py, s.x[k], s.y[k], a, b, c, dx, dy);
+          const float alpha = fminf(ALPHA_MAX, __fmul_rn(s.o[k], expf(power)));
+          if (alpha >= ALPHA_MIN) {
+            const float one_m = __fsub_rn(1.0f, alpha);
+            const float U = __fmul_rn(T, one_m);
+            if (U < T_EPS) {  // done before this gaussian
+              alive = false;
+            } else {
+              hit = true;
+              const float w = __fmul_rn(alpha, T);
+              const float contrib = __fadd_rn(
+                  __fadd_rn(__fadd_rn(__fmul_rn(gr, s.r[k]), __fmul_rn(gg, s.g[k])),
+                            __fmul_rn(gb, s.bl[k])),
+                  __fmul_rn(gd, s.z[k]));
+              prefix = __fadd_rn(prefix, __fmul_rn(contrib, w));
+              const float suffix = __fsub_rn(G2, prefix);
+              const float inv_1ma = __frcp_rn(fmaxf(one_m, ONE_M_FLOOR));
+              const float g_alpha = __fsub_rn(__fmul_rn(contrib, T),
+                                              __fmul_rn(suffix, inv_1ma));
+              const float g_power =
+                  alpha < ALPHA_MAX ? __fmul_rn(g_alpha, alpha) : 0.0f;
+              const float gx = __fmul_rn(
+                  g_power, __fadd_rn(__fmul_rn(a, dx), __fmul_rn(b, dy)));
+              const float gy = __fmul_rn(
+                  g_power, __fadd_rn(__fmul_rn(c, dy), __fmul_rn(b, dx)));
+              if constexpr (MODE == MODE_SELONLY) {
+                acc[0] = fabsf(gx);
+                acc[1] = fabsf(gy);
+              } else {
+                const float gh = __fmul_rn(g_power, -0.5f);
+                acc[0] = gx;
+                acc[1] = gy;
+                acc[2] = __fmul_rn(__fmul_rn(gh, dx), dx);
+                acc[3] = __fmul_rn(g_power, __fmul_rn(-dx, dy));
+                acc[4] = __fmul_rn(__fmul_rn(gh, dy), dy);
+                acc[5] = g_power;
+                acc[6] = __fmul_rn(w, gr);
+                acc[7] = __fmul_rn(w, gg);
+                acc[8] = __fmul_rn(w, gb);
+                acc[9] = __fmul_rn(w, gd);
+                if constexpr (MODE == MODE_FULL) {
+                  acc[10] = fabsf(gx);
+                  acc[11] = fabsf(gy);
+                }
+              }
+              T = U;
+            }
           }
         }
-        T[i] = U;
-      }
-      // fixed-order reduction over the warp's lanes (skipped, with a zero
-      // partial, when no lane of the warp contributes)
-      if (__any_sync(FULL_MASK, hit)) {
+        // fixed-order reduction over the warp's lanes (skipped, with a zero
+        // partial, when no lane of the warp contributes)
+        if (__any_sync(FULL_MASK, hit)) {
 #pragma unroll
-        for (int r = 0; r < W; ++r) {
-          float v = acc[r];
+          for (int r = 0; r < W; ++r) {
+            float v = acc[r];
 #pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            v = __fadd_rn(v, __shfl_down_sync(FULL_MASK, v, off));
-          acc[r] = v;
+            for (int off = 16; off > 0; off >>= 1)
+              v = __fadd_rn(v, __shfl_down_sync(FULL_MASK, v, off));
+            acc[r] = v;
+          }
+        }
+        if (lane == 0) {
+#pragma unroll
+          for (int r = 0; r < W; ++r) s_part[warp][k][r] = acc[r];
         }
       }
-      if (lane == 0) {
+      const int live = __syncthreads_count(alive);
+      // the CTA's sum of each kept slot: the warp partials in warp order
+      for (int i = threadIdx.x; i < kept * W; i += THREADS) {
+        const int k = i / W;
+        const int r = i - k * W;
+        float v = s_part[0][k][r];
 #pragma unroll
-        for (int r = 0; r < W; ++r) s_part[warp][j][r] = acc[r];
+        for (int w = 1; w < NWARPS; ++w) v = __fadd_rn(v, s_part[w][k][r]);
+        sum[s.src[k] * W + r] = v;
+      }
+      cta_alive = live > 0;
+    }
+    if (threadIdx.x == 0) s_live[buf] = cta_alive;
+
+    // the cluster's sums of this batch, then this CTA's share of the rows
+    int any = 0;
+    float* dst = out + static_cast<size_t>(start + base) * W;
+    const int per = (n + CL - 1) / CL;
+    const int j0 = st.q * per;
+    const int j1 = min(n, j0 + per);
+    if constexpr (CL > 1) {
+      cg::cluster_group cluster = cg::this_cluster();
+      cluster.sync();
+      const float* sums[CL];
+#pragma unroll
+      for (int q = 0; q < CL; ++q) {
+        sums[q] = cluster.map_shared_rank(sum, q);
+        any += *cluster.map_shared_rank(&s_live[buf], q);
+      }
+      for (int i = j0 * W + threadIdx.x; i < j1 * W; i += THREADS) {
+        float v = sums[0][i];
+#pragma unroll
+        for (int q = 1; q < CL; ++q) v = __fadd_rn(v, sums[q][i]);
+        const int j = i / W;
+        if (MODE != MODE_SELONLY && i - j * W == 5) {
+          const float opa = table[static_cast<size_t>(sorted_ids[start + base + j]) * ROW + 5];
+          v = __fdiv_rn(v, fmaxf(opa, 1e-12f));
+        }
+        dst[i] = v;
+      }
+    } else {
+      __syncthreads();
+      any = s_live[buf];
+      for (int i = threadIdx.x; i < n * W; i += THREADS) {
+        float v = sum[i];
+        const int j = i / W;
+        if (MODE != MODE_SELONLY && i - j * W == 5) {
+          const float opa = table[static_cast<size_t>(sorted_ids[start + base + j]) * ROW + 5];
+          v = __fdiv_rn(v, fmaxf(opa, 1e-12f));
+        }
+        dst[i] = v;
       }
     }
-    __syncthreads();
-
-    // sum the warp partials in warp order and write each slot's row once
-    float* dst = out + static_cast<size_t>(start + base) * W;
-    for (int idx = threadIdx.x; idx < n * W; idx += THREADS) {
-      const int j = idx / W;
-      const int r = idx - j * W;
-      float s = s_part[0][j][r];
-#pragma unroll
-      for (int w = 1; w < NWARPS; ++w) s = __fadd_rn(s, s_part[w][j][r]);
-      if (MODE != MODE_SELONLY && r == 5)
-        s = __fdiv_rn(s, fmaxf(s_opa[j], 1e-12f));
-      dst[idx] = s;
-    }
+    if (any == 0) break;
+  }
+  if constexpr (CL > 1) {
+    // no CTA leaves while another may still read its shared memory
+    cg::this_cluster().sync();
   }
 }
 
-template <int MODE>
+template <int TS, int MODE>
 int launch(const float* table, const int* sorted_ids, const int* tile_starts,
            const int* tile_counts, const float* gc4, const float* g2,
-           float* out, int num_tiles, int tiles_x, int tile_size,
-           cudaStream_t s) {
-  if (tile_size == 16) {
-    composite_bwd_kernel<16, MODE><<<num_tiles, THREADS, 0, s>>>(
-        table, sorted_ids, tile_starts, tile_counts, gc4, g2, out, tiles_x);
-  } else if (tile_size == 32) {
-    composite_bwd_kernel<32, MODE><<<num_tiles, THREADS, 0, s>>>(
-        table, sorted_ids, tile_starts, tile_counts, gc4, g2, out, tiles_x);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+           float* out, int num_tiles, int tiles_x, cudaStream_t s) {
+  constexpr int CL = SubTile<TS>::CTAS;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(num_tiles * CL);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = CL > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, composite_bwd_kernel<TS, MODE>, table, sorted_ids, tile_starts,
+      tile_counts, gc4, g2, out, tiles_x);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int MODE>
+int launch_mode(const float* table, const int* sorted_ids,
+                const int* tile_starts, const int* tile_counts,
+                const float* gc4, const float* g2, float* out, int num_tiles,
+                int tiles_x, int tile_size, cudaStream_t s) {
+  if (tile_size == 16)
+    return launch<16, MODE>(table, sorted_ids, tile_starts, tile_counts, gc4,
+                            g2, out, num_tiles, tiles_x, s);
+  if (tile_size == 32)
+    return launch<32, MODE>(table, sorted_ids, tile_starts, tile_counts, gc4,
+                            g2, out, num_tiles, tiles_x, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -279,14 +310,15 @@ extern "C" int gd_composite_bwd(const float* table, const int* sorted_ids,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case MODE_FULL:
-      return launch<MODE_FULL>(table, sorted_ids, tile_starts, tile_counts,
-                               gc4, g2, out, num_tiles, tiles_x, tile_size, s);
+      return launch_mode<MODE_FULL>(table, sorted_ids, tile_starts, tile_counts,
+                                    gc4, g2, out, num_tiles, tiles_x, tile_size, s);
     case MODE_NOABS:
-      return launch<MODE_NOABS>(table, sorted_ids, tile_starts, tile_counts,
-                                gc4, g2, out, num_tiles, tiles_x, tile_size, s);
+      return launch_mode<MODE_NOABS>(table, sorted_ids, tile_starts, tile_counts,
+                                     gc4, g2, out, num_tiles, tiles_x, tile_size, s);
     case MODE_SELONLY:
-      return launch<MODE_SELONLY>(table, sorted_ids, tile_starts, tile_counts,
-                                  gc4, g2, out, num_tiles, tiles_x, tile_size, s);
+      return launch_mode<MODE_SELONLY>(table, sorted_ids, tile_starts,
+                                       tile_counts, gc4, g2, out, num_tiles,
+                                       tiles_x, tile_size, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

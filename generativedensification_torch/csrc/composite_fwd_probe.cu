@@ -5,11 +5,12 @@
 // scripts/dev_kernel_break.py: `make_fwd` (the stage ladder of
 // pallas_composite_fwd), `make_fwd_hbm` (its output written by a manual
 // double-buffered DMA) and `make_fwd_tpb` (tiles per grid program).  Those
-// are copies of the Pallas kernel with stages switched off; here each
-// variant is an instantiation of the production kernel's own body
-// (composite_fwd.cuh), so a probe times exactly the production code minus
-// the stages it leaves out.  What each stage writes is in the header; the
-// plain PyTorch versions are splat/probe_kernels.py.
+// are copies of the Pallas kernel with stages switched off; here variants
+// 0-14 are instantiations of the one-CTA-per-tile body that was the
+// production kernel until the sub-tile redesign (composite_fwd.cuh, kept as
+// it was), so a probe times exactly that code minus the stages it leaves
+// out, and `full` is that design whole.  What each stage writes is in the
+// header; the plain PyTorch versions are splat/probe_kernels.py.
 //
 // Variants, by the index the wrapper passes (probe_kernels.COMPOSITE_VARIANTS):
 //    0 noop         1 load         2 power        3 alpha        4 trans
@@ -18,6 +19,9 @@
 //    9 noop_bulk   10 full_bulk (output by one bulk asynchronous copy)
 //   11 tpb2        12 tpb4 (2 or 4 tiles per CTA, in turn)
 //   13 tpb2_bulk   14 tpb4_bulk
+//   15 sub_noexit  16 sub_noskip (the production kernel of
+//      composite_subtile.cuh without its per-sub-tile exit, or without its
+//      footprint skip: what each of the two costs or saves)
 // The TPU variants pvpu / fullvpu / _high / _dflt have no counterpart: the
 // power form is computed elementwise in f32 on CUDA cores here (power and
 // full are that form), and no matrix unit precision is involved.
@@ -26,6 +30,7 @@
 // stage past load (the stage's own counts, tools/kernel_break.py).
 
 #include "composite_fwd.cuh"
+#include "composite_subtile.cuh"
 
 namespace {
 
@@ -38,6 +43,16 @@ int launch(const float* table, const int* sorted_ids, const int* tile_starts,
   composite_fwd_kernel<TS, STAGE, NB, TPB, EXIT, BULK>
       <<<num_tiles / TPB, THREADS, 0, s>>>(table, sorted_ids, tile_starts,
                                            tile_counts, out, tiles_x);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int TS, bool EXIT, bool SKIP>
+int launch_subtile(const float* table, const int* sorted_ids,
+                   const int* tile_starts, const int* tile_counts, float* out,
+                   int num_tiles, int tiles_x, cudaStream_t s) {
+  subtile::composite_fwd_kernel<TS, EXIT, SKIP>
+      <<<num_tiles * subtile::SubTile<TS>::CTAS, subtile::THREADS, 0, s>>>(
+          table, sorted_ids, tile_starts, tile_counts, out, tiles_x);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -62,6 +77,8 @@ int dispatch(int variant, const float* table, const int* ids,
     case 12: return launch<TS, FULL, BATCH, 4>(GD_ARGS);
     case 13: return launch<TS, FULL, BATCH, 2, true, true>(GD_ARGS);
     case 14: return launch<TS, FULL, BATCH, 4, true, true>(GD_ARGS);
+    case 15: return launch_subtile<TS, false, true>(GD_ARGS);
+    case 16: return launch_subtile<TS, true, false>(GD_ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef GD_ARGS

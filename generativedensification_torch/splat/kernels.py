@@ -29,6 +29,10 @@ Inputs shared by both kernels:
   tile_counts (T,) i32 slots per tile, already clamped to the per-tile cap
               (start + count <= P and every id < N, as binning gives them)
 Forward output: (T, 5, ts*ts) f32 rows [r, g, b, depth, alpha = 1 - T_final].
+The CUDA kernels composite each tile as 16 x 16 sub-tiles and skip the slots
+that provably cannot reach one; ``subtile_touch`` is that predicate in
+PyTorch, and the plain versions take its result as ``touch=`` (dropped
+pairs culled, which changes no bit).
 Backward inputs: gc4 (T, 4, ts*ts) f32 rows [gC_r, gC_g, gC_b, gD] (the
 tiled image and depth cotangents) and g2 (T, ts*ts) f32, the per-pixel
 total G = gC . C + gD . D plus the dL/dT_final term.  Backward output:
@@ -52,6 +56,11 @@ T_EPS = 1e-4
 TABLE_W = 12
 OUT_ROWS = 5
 CHUNK = 32    # slots per gathered block of the plain versions
+# the CUDA compositors' sub-tiles (csrc/composite_subtile.cuh): one CTA per
+# SUBTILE x SUBTILE pixels, and the margins of their footprint skip
+SUBTILE = 16
+SKIP_MARGIN_ABS = 2.0 ** -13
+SKIP_MARGIN_REL = 2.0 ** -14
 # per-slot rows of each backward mode (the order of ``_xla_bwd``'s columns):
 #   full     dx, dy, d conic (3), d opacity, d color (3), d depth, |dx|, |dy|
 #   noabs    the first ten
@@ -225,16 +234,20 @@ def composite_fwd(table, sorted_ids, tile_starts, tile_counts,
 
 def composite_fwd_plain(table, sorted_ids, tile_starts, tile_counts,
                         tiles_x: int, tiles_y: int, tile_size: int,
-                        stats: dict | None = None) -> torch.Tensor:
+                        stats: dict | None = None,
+                        touch: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch version of the kernel, with the semantics of the JAX
     ``_xla_fwd``: chunks of CHUNK slots of every tile are gathered and
     their alpha computed as one (T, CHUNK, ts²) block; the transmittance
     chain then steps through the chunk slot by slot, in the kernel's order
     and rounding, so this version is the kernel's bit-level reference.
 
-    ``stats``, if given, receives the number of (slot, live pixel)
-    evaluations and of contributing pairs (the kernel's data-dependent
-    work, for its roofline bound)."""
+    ``touch``, if given (``subtile_touch``'s (sub-tiles, P) mask), culls the
+    (slot, sub-tile) pairs it drops, as the kernel's footprint skip does; the
+    output is the same.  ``stats``, if given, receives the number of (slot,
+    live pixel) evaluations, of those the skip leaves (``evals_kept``, with
+    ``touch``) and of contributing pairs (the kernel's data-dependent work,
+    for its roofline bound)."""
     dev = table.device
     ts = tile_size
     npix = ts * ts
@@ -251,7 +264,9 @@ def composite_fwd_plain(table, sorted_ids, tile_starts, tile_counts,
     acc = torch.zeros((4, num_tiles, npix), dtype=f32, device=dev)  # r g b z
     alive = torch.ones((num_tiles, npix), dtype=torch.bool, device=dev)
     n_eval = torch.zeros((), dtype=torch.int64, device=dev)
+    n_kept = torch.zeros((), dtype=torch.int64, device=dev)
     n_contrib = torch.zeros((), dtype=torch.int64, device=dev)
+    q_of_pixel = None if touch is None else _subtile_of_pixel(ts, dev)
 
     starts = tile_starts.long()[:, None]
     counts = tile_counts.long()[:, None]
@@ -273,11 +288,17 @@ def composite_fwd_plain(table, sorted_ids, tile_starts, tile_counts,
                             max=0.0)
         alpha = torch.clamp(opa * torch.exp(power), max=ALPHA_MAX)
         hit = (alpha >= ALPHA_MIN) & in_range[..., None]
+        kept = None if touch is None else _touch_mask(touch, slot, q_of_pixel)
+        if kept is not None:
+            hit = hit & kept
         cols = rows[..., 6:10].permute(1, 2, 0)                 # (K, 4, T)
         for j in range(min(CHUNK, max_count - c0)):
             a_j = alpha[:, j]
             if stats is not None:
-                n_eval += (alive & in_range[:, j:j + 1]).sum()
+                live = alive & in_range[:, j:j + 1]
+                n_eval += live.sum()
+                if kept is not None:
+                    n_kept += (live & kept[:, j]).sum()
             use = alive & hit[:, j]
             U = T * (1.0 - a_j)
             stop = use & (U < T_EPS)
@@ -290,8 +311,116 @@ def composite_fwd_plain(table, sorted_ids, tile_starts, tile_counts,
                 n_contrib += take.sum()
     if stats is not None:
         stats["evals"] = int(n_eval)
+        if touch is not None:
+            stats["evals_kept"] = int(n_kept)
         stats["contribs"] = int(n_contrib)
     return torch.cat([acc.permute(1, 0, 2), (1.0 - T)[:, None]], dim=1)
+
+
+def _subtile_of_pixel(tile_size: int, dev) -> torch.Tensor:
+    """(ts²,) the sub-tile q = qy * (ts / 16) + qx of each tile pixel."""
+    side = tile_size // SUBTILE
+    p = torch.arange(tile_size * tile_size, device=dev)
+    x, y = p % tile_size, torch.div(p, tile_size, rounding_mode="floor")
+    return (torch.div(y, SUBTILE, rounding_mode="floor") * side
+            + torch.div(x, SUBTILE, rounding_mode="floor"))
+
+
+def _touch_mask(touch, slot, q_of_pixel) -> torch.Tensor:
+    """(T, K, ts²): whether the skip keeps slot[t, k] for each pixel's
+    sub-tile."""
+    return touch[:, slot].permute(1, 2, 0)[..., q_of_pixel]
+
+
+def subtile_keep(gx, gy, a, b, c, opa, rcx, rcy) -> torch.Tensor:
+    """The footprint skip's predicate, elementwise (f32 tensors that
+    broadcast): can a slot with tile-local centre (gx, gy), conic (a, b, c)
+    and folded opacity ``opa`` reach alpha >= 1/255 at a pixel centre of the
+    16 x 16 rectangle centred at (rcx, rcy)?  The PyTorch mirror of
+    ``csrc/composite_subtile.cuh::subtile_keep``, operation for operation in
+    f32 (``torch.log`` may differ from the card's ``logf`` in the last ulp):
+    the binning's bound on the rectangle, q >= lambda_min |v|² / 2 and, where
+    the eigenvalue gap is >= lambda_max / 16, q >= lambda_max (v·u)² / 2,
+    against tau = log(255 opa) plus SKIP_MARGIN_ABS and SKIP_MARGIN_REL ×
+    (a + c + 2|b|) × the squared distance to the rectangle's farthest pixel.
+    Keeps every slot with a non-finite entry; of the others, drops every
+    slot whose opacity is <= 0 and keeps every slot whose conic is not
+    positive definite."""
+    f32 = torch.float32
+    dev = gx.device
+    zero = torch.zeros((), dtype=f32, device=dev)
+    tiny = torch.tensor(1e-20, dtype=f32, device=dev)
+    half = 0.5 * (SUBTILE - 1)
+    pos = lambda x: torch.where(x > 0, x, zero)
+    finite = (torch.isfinite(gx) & torch.isfinite(gy) & torch.isfinite(a)
+              & torch.isfinite(b) & torch.isfinite(c) & torch.isfinite(opa))
+    det = a * c - b * b
+    pd = (a > 0) & (c > 0) & (det > 0)
+    m = 0.5 * (a + c)
+    h = 0.5 * (a - c)
+    r = torch.sqrt(h * h + b * b)
+    lmin = pos(m - r)
+    lmax = m + r
+    tau = torch.log(opa * 255.0)
+    cx = gx - rcx
+    cy = gy - rcy
+    ax, ay = cx.abs(), cy.abs()
+    dxr = pos(ax - half)
+    dyr = pos(ay - half)
+    bound = (0.5 * lmin) * (dxr * dxr + dyr * dyr)
+    v1x, v1y = b, lmax - a
+    v2x, v2y = lmax - c, b
+    n1 = v1x * v1x + v1y * v1y
+    n2 = v2x * v2x + v2y * v2y
+    use1 = n1 >= n2
+    un = torch.sqrt(torch.where(use1, n1, n2))
+    directional = (r * 32.0 >= lmax) & (un >= tiny)
+    ux = torch.where(use1, v1x, v2x) / un
+    uy = torch.where(use1, v1y, v2y) / un
+    du = pos((cx * ux + cy * uy).abs() - half * (ux.abs() + uy.abs()))
+    dirb = (0.5 * lmax) * (du * du)
+    bound = torch.where(directional, torch.where(bound > dirb, bound, dirb), bound)
+    fx, fy = ax + half, ay + half
+    scale = ((a + c) + 2.0 * b.abs()) * (fx * fx + fy * fy)
+    limit = tau + (SKIP_MARGIN_ABS + SKIP_MARGIN_REL * scale)
+    keep = ~(bound > limit)
+    keep = torch.where(pd, keep, True)
+    keep = torch.where(opa <= 0, False, keep)
+    return torch.where(finite, keep, True)
+
+
+def subtile_touch(table, sorted_ids, tile_starts, tile_counts, tiles_x: int,
+                  tiles_y: int, tile_size: int) -> torch.Tensor:
+    """The footprint skip of the CUDA compositors for every (sub-tile,
+    slot): a (ts² / 256, P) bool tensor, row q = qy * (ts / 16) + qx the
+    tile's 16 x 16 sub-tile, True where the kernels keep the slot for that
+    sub-tile of its tile (``subtile_keep``), False for slots in no tile's
+    segment.  Measurement and tests only: the kernels decide on the card."""
+    num_tiles = tiles_x * tiles_y
+    _check_inputs(table, sorted_ids, tile_starts, tile_counts, num_tiles)
+    dev = table.device
+    side = tile_size // SUBTILE
+    if side * SUBTILE != tile_size:
+        raise ValueError(f"tile size {tile_size} is not a multiple of {SUBTILE}")
+    counts = tile_counts.long()
+    tile = torch.repeat_interleave(torch.arange(num_tiles, device=dev), counts)
+    rank = torch.arange(tile.shape[0], device=dev) - (torch.cumsum(counts, 0)
+                                                      - counts)[tile]
+    slot = tile_starts.long()[tile] + rank          # the slots of every segment
+    rows = table[sorted_ids[slot].long()]
+    f32 = torch.float32
+    gx = rows[:, 0] - ((tile % tiles_x) * tile_size).to(f32)
+    gy = rows[:, 1] - (torch.div(tile, tiles_x, rounding_mode="floor")
+                       * tile_size).to(f32)
+    opa = torch.where(rows[:, 10] > 0, rows[:, 5], torch.zeros_like(rows[:, 5]))
+    touch = torch.zeros((side * side, sorted_ids.shape[0]), dtype=torch.bool,
+                        device=dev)
+    for q in range(side * side):
+        rcx = float((q % side) * SUBTILE) + 0.5 * (SUBTILE - 1)
+        rcy = float((q // side) * SUBTILE) + 0.5 * (SUBTILE - 1)
+        touch[q, slot] = subtile_keep(gx, gy, rows[:, 2], rows[:, 3], rows[:, 4],
+                                      opa, rcx, rcy)
+    return touch
 
 
 def _check_bwd(gc4, g2, num_tiles, tile_size, mode):
@@ -343,8 +472,8 @@ def composite_bwd(table, sorted_ids, tile_starts, tile_counts, gc4, g2,
 
 def composite_bwd_plain(table, sorted_ids, tile_starts, tile_counts, gc4, g2,
                         tiles_x: int, tiles_y: int, tile_size: int,
-                        mode: str = "full",
-                        stats: dict | None = None) -> torch.Tensor:
+                        mode: str = "full", stats: dict | None = None,
+                        touch: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch version of the backward kernel, with the semantics of
     the JAX ``_xla_bwd``: chunks of CHUNK slots of every tile are gathered
     and their alpha computed as one (T, CHUNK, ts²) block as in the forward's
@@ -353,9 +482,7 @@ def composite_bwd_plain(table, sorted_ids, tile_starts, tile_counts, gc4, g2,
     are summed over the tile's pixels (in another order than the kernel's
     shuffle tree, so the two agree to rounding, not bitwise).
 
-    ``stats``, if given, receives the number of (slot, live pixel)
-    evaluations and of contributing pairs (the kernel's data-dependent
-    work, for its roofline bound)."""
+    ``touch`` and ``stats`` as in ``composite_fwd_plain``."""
     dev = table.device
     ts = tile_size
     npix = ts * ts
@@ -376,7 +503,9 @@ def composite_bwd_plain(table, sorted_ids, tile_starts, tile_counts, gc4, g2,
     gr, gg, gb, gd = gc4.unbind(1)
     zero = torch.zeros((), dtype=f32, device=dev)
     n_eval = torch.zeros((), dtype=torch.int64, device=dev)
+    n_kept = torch.zeros((), dtype=torch.int64, device=dev)
     n_contrib = torch.zeros((), dtype=torch.int64, device=dev)
+    q_of_pixel = None if touch is None else _subtile_of_pixel(ts, dev)
 
     starts = tile_starts.long()[:, None]
     counts = tile_counts.long()[:, None]
@@ -397,10 +526,16 @@ def composite_bwd_plain(table, sorted_ids, tile_starts, tile_counts, gc4, g2,
                             max=0.0)
         alpha = torch.clamp(opa * torch.exp(power), max=ALPHA_MAX)
         hit = (alpha >= ALPHA_MIN) & in_range[..., None]
+        kept = None if touch is None else _touch_mask(touch, slot, q_of_pixel)
+        if kept is not None:
+            hit = hit & kept
         for j in range(min(CHUNK, max_count - c0)):
             a_j = alpha[:, j]
             if stats is not None:
-                n_eval += (alive & in_range[:, j:j + 1]).sum()
+                live = alive & in_range[:, j:j + 1]
+                n_eval += live.sum()
+                if kept is not None:
+                    n_kept += (live & kept[:, j]).sum()
             use = alive & hit[:, j]
             one_m = 1.0 - a_j
             U = T * one_m
@@ -437,6 +572,8 @@ def composite_bwd_plain(table, sorted_ids, tile_starts, tile_counts, gc4, g2,
                 n_contrib += take.sum()
     if stats is not None:
         stats["evals"] = int(n_eval)
+        if touch is not None:
+            stats["evals_kept"] = int(n_kept)
         stats["contribs"] = int(n_contrib)
     return out
 

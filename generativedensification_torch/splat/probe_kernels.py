@@ -5,9 +5,14 @@ Replace the TPU probe kernels of the JAX package's
 ``scripts/dev_kernel_break.py`` (``make_fwd``, ``make_fwd_hbm``,
 ``make_fwd_tpb``: ``csrc/composite_fwd_probe.cu``) and
 ``scripts/dev_surfel_break.py`` (``make_fwd``: ``csrc/surfel_fwd_probe.cu``).
-Each variant is an instantiation of the production kernel's body
-(``csrc/composite_fwd.cuh``, ``csrc/surfel_fwd.cuh``) with stages switched
-off or another launch shape; ``tools/kernel_break.py`` and
+Each variant is an instantiation of a compositor body with stages switched
+off or another launch shape: for the 3DGS forward the one-CTA-per-tile body
+that was the production kernel before the sub-tile redesign
+(``csrc/composite_fwd.cuh``; ``full`` is that design whole) and, as
+``sub_noexit`` / ``sub_noskip``, the production sub-tile kernel
+(``csrc/composite_subtile.cuh``) without its per-sub-tile exit or its
+footprint skip; for the surfel forward the production body
+(``csrc/surfel_fwd.cuh``).  ``tools/kernel_break.py`` and
 ``tools/surfel_break.py`` time them.  Serving and training never call them.
 
 ``composite_fwd_probe`` and ``surfel_fwd_probe`` take the production
@@ -39,6 +44,7 @@ COMPOSITE_VARIANTS = (
     "full_b128", "trips",                            # make_fwd
     "noop_bulk", "full_bulk",                        # make_fwd_hbm
     "tpb2", "tpb4", "tpb2_bulk", "tpb4_bulk",        # make_fwd_tpb
+    "sub_noexit", "sub_noskip",                      # make_fwd (sub-tile body)
 )
 SURFEL_VARIANTS = ("noop", "load", "alpha", "geomd", "trans", "acc", "full")
 TPU_KERNEL = {v: ("make_fwd_hbm" if v in ("noop_bulk", "full_bulk") else
@@ -46,7 +52,7 @@ TPU_KERNEL = {v: ("make_fwd_hbm" if v in ("noop_bulk", "full_bulk") else
               for v in COMPOSITE_VARIANTS}
 # variants whose output is the production kernel's output, bit for bit
 PRODUCTION_OUTPUT = ("full", "full_noexit", "full_b128", "full_bulk", "tpb2",
-                     "tpb4", "tpb2_bulk", "tpb4_bulk")
+                     "tpb4", "tpb2_bulk", "tpb4_bulk", "sub_noexit", "sub_noskip")
 # launches per variant (the kernels' totals are in kernels.launch_counts)
 variant_launches = {("composite", v): 0 for v in COMPOSITE_VARIANTS}
 variant_launches.update({("surfel", v): 0 for v in SURFEL_VARIANTS})

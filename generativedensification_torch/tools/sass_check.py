@@ -1,18 +1,22 @@
-"""Check that the production forward compositors compile to the same machine
-code as a parent commit's sources.
+"""Check that the forward compositor bodies that must stay as they were
+compile to the same machine code as a parent commit's sources.
 
     git archive <parent> generativedensification_torch/csrc | tar -x -C build/parent
     python -m generativedensification_torch.tools.sass_check \\
         --parent build/parent/generativedensification_torch/csrc
 
-Builds ``composite_fwd.cu`` and ``surfel_fwd.cu`` from ``csrc/`` and from
-the parent's directory with the port's own ``nvcc`` flags
-(``splat/kernels.py::NVCC_FLAGS``), disassembles each library with
-``cuobjdump -sass`` and compares every kernel's SASS with its parent's after
-dropping the symbol names (which carry the template arguments), kernel by
-tile size.  Prints each kernel's ``-Xptxas -v`` line on both sides and
-exits 1 if any instruction differs.  Needs the CUDA toolkit (``nvcc``,
-``cuobjdump``); runs on a machine without a card too.
+Builds ``composite_fwd_probe.cu`` (the stage probes on the one-CTA-per-tile
+body ``composite_fwd.cuh``, which was kernel #1 before the sub-tile
+redesign and stays byte for byte) and ``surfel_fwd.cu`` (kernel #3 on
+``surfel_fwd.cuh``) from ``csrc/`` and from the parent's directory with the
+port's own ``nvcc`` flags (``splat/kernels.py::NVCC_FLAGS``), disassembles
+each library with ``cuobjdump -sass`` and compares every kernel present on
+both sides, by its mangled symbol, with its parent's.  ``composite_fwd.cu``
+itself changed on purpose with the redesign and is not compared.  Prints
+each kernel's ``-Xptxas -v`` line on both sides, lists the kernels only one
+side has, and exits 1 if any instruction or report of a shared kernel
+differs or the parent has a kernel the change lacks.  Needs the CUDA
+toolkit (``nvcc``, ``cuobjdump``); runs on a machine without a card too.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from pathlib import Path
 
 from ..splat import kernels
 
-SOURCES = ("composite_fwd", "surfel_fwd")
+SOURCES = ("composite_fwd_probe", "surfel_fwd")
 _OUT = Path(__file__).resolve().parents[2] / "build" / "sass_check"
 
 
@@ -40,9 +44,16 @@ def _build(src: Path, tag: str) -> tuple[Path, str]:
     return lib, proc.stdout + proc.stderr
 
 
+def _symbol(mangled: str) -> str:
+    """A kernel's mangled symbol without the per-build hash nvcc gives its
+    anonymous namespace."""
+    return re.sub(r"\d+_GLOBAL__N__[0-9a-f]+_\d+_(\w+?)_cu_[0-9a-f]{8}", r"(anon \1)",
+                  mangled)
+
+
 def _functions(lib: Path) -> dict[str, list[str]]:
-    """SASS per kernel, keyed by the tile size in its symbol, with the
-    symbol lines dropped."""
+    """SASS per kernel, keyed by its mangled symbol, with the symbol lines
+    dropped."""
     cuobjdump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
     text = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
@@ -50,7 +61,7 @@ def _functions(lib: Path) -> dict[str, list[str]]:
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            key = re.search(r"ILi(\d+)E", m.group(1)).group(1)
+            key = _symbol(m.group(1))
             funcs[key] = []
         elif key is not None and line.strip():
             funcs[key].append(line.strip())
@@ -58,12 +69,12 @@ def _functions(lib: Path) -> dict[str, list[str]]:
 
 
 def _ptxas(log: str) -> dict[str, str]:
-    """The ``-Xptxas -v`` report per kernel, keyed by tile size."""
+    """The ``-Xptxas -v`` report per kernel, keyed by its mangled symbol."""
     out, key = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            key = re.search(r"ILi(\d+)E", m.group(1)).group(1)
+            key = _symbol(m.group(1))
         elif key is not None and ("registers" in line or "spill" in line):
             out[key] = (out.get(key, "") + " " + line.split(":", 1)[-1].strip()).strip()
     return out
@@ -81,15 +92,22 @@ def main(argv=None) -> int:
         lib_c, log_c = _build(here / f"{name}.cu", "change")
         fp, fc = _functions(lib_p), _functions(lib_c)
         rp, rc = _ptxas(log_p), _ptxas(log_c)
-        for ts in sorted(set(fp) | set(fc), key=int):
-            a, b = fp.get(ts, []), fc.get(ts, [])
+        for key in sorted(set(fp) | set(fc)):
+            if key not in fp:
+                print(f"{name}: {key} is new (not compared)\n  change: {rc.get(key)}")
+                continue
+            if key not in fc:
+                print(f"{name}: {key} is gone")
+                same = False
+                continue
+            a, b = fp[key], fc[key]
             ok = a == b
-            same = same and ok and rp.get(ts) == rc.get(ts)
+            same = same and ok and rp.get(key) == rc.get(key)
             n_diff = sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b))
-            print(f"{name}_kernel<{ts}>: SASS {'identical' if ok else 'DIFFERS'} "
+            print(f"{name}: {key}: SASS {'identical' if ok else 'DIFFERS'} "
                   f"({len(a)} / {len(b)} lines, {n_diff} differ)")
-            print(f"  parent: {rp.get(ts)}")
-            print(f"  change: {rc.get(ts)}")
+            print(f"  parent: {rp.get(key)}")
+            print(f"  change: {rc.get(key)}")
     return 0 if same else 1
 
 

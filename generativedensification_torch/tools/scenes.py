@@ -8,7 +8,12 @@ kernels' own inputs (projected or set up, binned and packed by the port).
 - scene B / B′: the 262,144 coarse Gaussians / surfels of the full-width
   serving network from seed 0 on the probe batch, in view 0
   (``model_view`` and ``model_gaussians`` / ``model_surfels``);
-- a small surfel scene (256², 20,000 surfels), ``surfel_scene``.
+- a small surfel scene (256², 20,000 surfels), ``surfel_scene``;
+- the adversarial scene of the compositors' footprint skip (256²,
+  ``adversarial_scene``).
+
+The budgets (``max_tiles``, ``enum_tiles``, ``max_per_tile``) default to the
+serving configuration's and can be set to the train step's warmup budgets.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ from ..core.camera import Camera
 from ..core.transforms import normalize_quat
 from ..splat.binning import bin_gaussians
 from ..splat.composite import pack_table
-from ..splat.projection import project_gaussians
+from ..splat.projection import ProjectedGaussians, project_gaussians
 from ..splat.surfel import pack_surfel_table, surfel_inputs
 
 
@@ -36,34 +41,41 @@ def fine_config(**over):
 
 
 def compositor_inputs(means, shs, opa, scales, quats, cam, tile_size,
-                      max_tiles, max_per_tile):
+                      max_tiles, max_per_tile, enum_tiles=None):
     """Project + bin one view with the port's own functions.  Returns the
     forward kernel's arguments, the pairs the budgets dropped, and the
     ``bins`` that ``composite.composite_backward`` takes."""
     proj = project_gaussians(means, shs, opa, cam, 1, scales,
                              normalize_quat(quats))
-    bins = bin_gaussians(proj, cam.height, cam.width, tile_size=tile_size,
-                         max_tiles=max_tiles)
+    return projected_inputs(proj, cam.height, cam.width, tile_size, max_tiles,
+                            max_per_tile, enum_tiles)
+
+
+def projected_inputs(proj, height, width, tile_size, max_tiles, max_per_tile,
+                     enum_tiles=None):
+    """``compositor_inputs`` from projected Gaussians: bin and pack."""
+    n = proj.xy.shape[0]
+    bins = bin_gaussians(proj, height, width, tile_size=tile_size,
+                         max_tiles=max_tiles, enum_tiles=enum_tiles or None)
     opa_eff = torch.where(proj.valid, proj.opacity, torch.zeros_like(proj.opacity))
     table = pack_table(proj.xy, proj.conic, proj.color, opa_eff, proj.depth,
                        proj.valid)
-    counts = torch.clamp(bins.tile_counts, max=min(max_per_tile,
-                                                   means.shape[0] * max_tiles))
+    counts = torch.clamp(bins.tile_counts, max=min(max_per_tile, n * max_tiles))
     overflow = int(bins.overflow) + int((bins.tile_counts - counts).sum())
     args = (table, bins.sorted_ids, bins.tile_starts, counts, bins.tiles_x,
             bins.tiles_y, tile_size)
     back = (bins.sorted_ids, bins.sorted_o, bins.depth_order, bins.tile_starts,
-            counts, means.shape[0] * max_tiles)
+            counts, n * max_tiles)
     return args, overflow, back
 
 
 def surfel_kernel_inputs(means, shs, opa, scales2d, quats, cam, tile_size,
-                         max_tiles, max_per_tile):
+                         max_tiles, max_per_tile, enum_tiles=None):
     """Set up and bin one view's surfels with the port's own functions (the
     part of ``rasterize_surfels`` before compositing); returns the kernels'
     inputs and the ``SurfelInputs`` record."""
     si = surfel_inputs(means, shs, opa, scales2d, quats, cam, 1, tile_size,
-                       max_tiles, max_per_tile)
+                       max_tiles, max_per_tile, enum_tiles or None)
     table = pack_surfel_table(*si.attrs)
     ids, _, _, starts, counts = si.bins
     return (table, ids, starts, counts, si.planes, *si.dims), si
@@ -86,22 +98,23 @@ def _bench_arrays(dev, n, hw, scale_dims, smin=0.002, smax=0.01):
     return means, shs, opa, scales, quats, cam
 
 
-def bench_scene(dev, tile_size=32, max_tiles=4, n=131072, hw=512):
+def bench_scene(dev, tile_size=32, max_tiles=4, n=131072, hw=512,
+                max_per_tile=4096, enum_tiles=None):
     """Scene A: ``bench.py``'s scene (512², 131,072 Gaussians, seed 0), at
-    its tile size and ``max_tiles``; ``compositor_inputs``' three values."""
+    its tile size and budgets; ``compositor_inputs``' three values."""
     means, shs, opa, scales, quats, cam = _bench_arrays(dev, n, hw, 3)
     return compositor_inputs(means, shs, opa, scales, quats, cam, tile_size,
-                             max_tiles, 4096)
+                             max_tiles, max_per_tile, enum_tiles)
 
 
 def surfel_bench_scene(dev, scales="default", tile_size=32, max_tiles=4,
-                       n=131072, hw=512):
+                       n=131072, hw=512, max_per_tile=4096, enum_tiles=None):
     """Scene A′: the surfel form of scene A (``scripts/dev_surfel_break.py``),
     2-D scales in [0.002, 0.01], or [0.004, 0.02] with ``scales="free"``."""
     smin, smax = (0.004, 0.02) if scales == "free" else (0.002, 0.01)
     means, shs, opa, s2, quats, cam = _bench_arrays(dev, n, hw, 2, smin, smax)
     return surfel_kernel_inputs(means, shs, opa, s2, normalize_quat(quats), cam,
-                                tile_size, max_tiles, 4096)
+                                tile_size, max_tiles, max_per_tile, enum_tiles)
 
 
 def surfel_scene(dev):
@@ -138,23 +151,138 @@ def model_view(renderer: str, dev):
     return pkg, net._cameras_all(batch)[0][0], cfg
 
 
-def model_gaussians(pkg, cam, cfg, tile_size=None, max_tiles=None):
+def model_gaussians(pkg, cam, cfg, tile_size=None, max_tiles=None,
+                    max_per_tile=None, enum_tiles=None):
     """Scene B: a forward's coarse Gaussians ``pkg`` (``render_pkg[0]``) of
     batch element 0 in camera ``cam``, binned with the configuration's
-    budgets (or the given tile size and ``max_tiles``);
+    budgets (or the given tile size and budgets);
     ``compositor_inputs``' three values."""
     centers, shs, opacity, scaling, rotation = pkg
     return compositor_inputs(
         centers[0], shs[0], torch.sigmoid(opacity[0, :, 0]), torch.exp(scaling[0]),
         rotation[0], cam, tile_size or cfg.tile_size, max_tiles or cfg.max_tiles,
-        cfg.max_per_tile)
+        max_per_tile or cfg.max_per_tile, enum_tiles or cfg.enum_tiles)
 
 
-def model_surfels(pkg, cam, cfg, tile_size=None, max_tiles=None):
+def model_surfels(pkg, cam, cfg, tile_size=None, max_tiles=None,
+                  max_per_tile=None, enum_tiles=None):
     """Scene B′: as ``model_gaussians`` for the coarse surfels of a 2DGS
     forward; ``surfel_kernel_inputs``' two values."""
     centers, shs, opacity, scaling, rotation = pkg
     return surfel_kernel_inputs(
         centers[0], shs[0], torch.sigmoid(opacity[0, :, 0]),
         torch.exp(scaling[0])[:, :2], rotation[0], cam,
-        tile_size or cfg.tile_size, max_tiles or cfg.max_tiles, cfg.max_per_tile)
+        tile_size or cfg.tile_size, max_tiles or cfg.max_tiles,
+        max_per_tile or cfg.max_per_tile, enum_tiles or cfg.enum_tiles)
+
+
+def _conic_of(rng, n, sig_lo, sig_hi, aniso=1.0):
+    """(n, 3) conics (a, b, c) and 3-sigma radii of random 2-D covariances
+    R diag(s1², s2²) Rᵀ + 0.3 I (the projection's dilation), s1 in
+    [sig_lo, sig_hi] and s2 = s1 × [1, aniso]."""
+    s1 = np.exp(rng.uniform(np.log(sig_lo), np.log(sig_hi), n))
+    s2 = s1 * np.exp(rng.uniform(0.0, np.log(aniso), n)) if aniso > 1 else s1
+    th = rng.uniform(0, np.pi, n)
+    co, si = np.cos(th), np.sin(th)
+    ca = co * co * s1 ** 2 + si * si * s2 ** 2 + 0.3
+    cb = co * si * (s1 ** 2 - s2 ** 2)
+    cc = si * si * s1 ** 2 + co * co * s2 ** 2 + 0.3
+    det = ca * cc - cb * cb
+    conic = np.stack([cc / det, -cb / det, ca / det], -1)
+    radius = np.ceil(3.0 * np.sqrt(np.maximum(s1, s2) ** 2 + 0.3))
+    return conic, radius
+
+
+def adversarial_scene(dev, tile_size=32, seed=0, hw=256):
+    """The footprint skip's adversarial scene at ``hw``² (seeded): opaque
+    Gaussians (opacity 0.95-1) in front over the left half, with more than a
+    staging batch of others behind them, so that pixels, sub-tiles and tiles
+    saturate and stop early; Gaussians centred 0.5-2 px
+    outside a sub-tile's pixel-centre rectangle (beside an edge or a
+    corner) whose opacity puts alpha at the rectangle's nearest pixel within
+    ±0.1% of 1/255; opacities at 1/255 and just above it; near-singular
+    conics (covariance eigenvalues up to 1e7 px²), near-isotropic ones
+    (eigenvalue gap ~1e-6) and a few that are not positive definite; and
+    about 3% of the rows marked invalid in the table after binning (their
+    folded opacity is 0).  Binned with ``max_tiles`` = every tile of the
+    view, so nothing overflows; the counts are those of a 256² view scaled
+    to ``hw``²; ``compositor_inputs``' three values."""
+    rng = np.random.default_rng(seed)
+    parts = []   # (xy, conic, radius, opacity, depth)
+    size = lambda n: max(1, round(n * hw * hw / 256 ** 2))   # counts per 256²
+
+    left = lambda n: np.stack([rng.uniform(0, hw / 2, n), rng.uniform(0, hw, n)], -1)
+    n = size(1500)  # saturating, left half, in front
+    conic, radius = _conic_of(rng, n, 3.0, 8.0, aniso=2.0)
+    parts.append((left(n), conic, radius, rng.uniform(0.95, 1.0, n),
+                  rng.uniform(0.5, 1.5, n)))
+    n = size(2500)  # behind them: more than a batch
+    conic, radius = _conic_of(rng, n, 1.0, 3.0, aniso=2.0)
+    parts.append((left(n), conic, radius, rng.uniform(0.1, 0.9, n),
+                  rng.uniform(5.0, 6.0, n)))
+
+    n = size(1500)  # knife edges at sub-tile borders
+    conic, radius = _conic_of(rng, n, 0.3, 2.0, aniso=3.0)
+    k = rng.integers(1, hw // 16, size=(n, 2)) * 16   # a sub-tile's first pixel
+    d = rng.uniform(0.5, 2.0, size=(n, 2))
+    before = rng.uniform(size=(n, 2)) < 0.5           # outside its first / last
+    centre = np.where(before, k - d, k - 1 + d)
+    near = np.where(before, k, k - 1).astype(np.float64)
+    free = rng.uniform(0, hw - 1, size=(n, 2))
+    kind = rng.integers(0, 3, n)                      # x edge, y edge, corner
+    use_x, use_y = kind != 1, kind != 0
+    xy = np.stack([np.where(use_x, centre[:, 0], free[:, 0]),
+                   np.where(use_y, centre[:, 1], free[:, 1])], -1)
+    px = np.stack([np.where(use_x, near[:, 0], np.round(xy[:, 0])),
+                   np.where(use_y, near[:, 1], np.round(xy[:, 1]))], -1)
+    dx, dy = px[:, 0] - xy[:, 0], px[:, 1] - xy[:, 1]
+    q = 0.5 * (conic[:, 0] * dx * dx + conic[:, 2] * dy * dy) + conic[:, 1] * dx * dy
+    opa = np.minimum(np.exp(q) / 255.0 * (1.0 + rng.uniform(-1e-3, 1e-3, n)), 1.0)
+    parts.append((xy, conic, radius, opa, rng.uniform(1.0, 5.0, n)))
+
+    n = size(300)  # opacities at and above 1/255
+    conic, radius = _conic_of(rng, n, 1.0, 4.0, aniso=2.0)
+    t = np.float32(1.0 / 255.0)
+    levels = np.asarray([t, np.nextafter(t, np.float32(1)), t * (1 + 1e-6),
+                         t * (1 + 1e-4), t * 1.01], np.float64)
+    parts.append((rng.uniform(0, hw, (n, 2)), conic, radius,
+                  levels[rng.integers(0, len(levels), n)], rng.uniform(1.0, 5.0, n)))
+
+    n = size(300)  # near-singular: long thin lines
+    th = rng.uniform(0, np.pi, n)
+    lmaj = np.exp(rng.uniform(np.log(1e3), np.log(1e7), n))
+    co, si = np.cos(th), np.sin(th)
+    ca, cb = co * co * lmaj + si * si * 0.3, co * si * (lmaj - 0.3)
+    cc = si * si * lmaj + co * co * 0.3
+    det = ca * cc - cb * cb
+    conic = np.stack([cc / det, -cb / det, ca / det], -1)
+    parts.append((rng.uniform(0, hw, (n, 2)), conic, np.full(n, float(hw)),
+                  rng.uniform(0.05, 1.0, n), rng.uniform(1.0, 5.0, n)))
+
+    n = size(200)  # near-isotropic conics
+    a = rng.uniform(0.05, 1.0, n)
+    conic = np.stack([a * (1 + rng.uniform(-1e-6, 1e-6, n)),
+                      a * rng.uniform(-1e-6, 1e-6, n), a], -1)
+    parts.append((rng.uniform(0, hw, (n, 2)), conic,
+                  np.ceil(3.0 / np.sqrt(a)), rng.uniform(0.05, 1.0, n),
+                  rng.uniform(1.0, 5.0, n)))
+
+    n = size(20)  # not positive definite
+    a = rng.uniform(0.2, 1.0, n)
+    conic = np.stack([a, a * rng.uniform(1.0, 1.5, n), a], -1)
+    parts.append((rng.uniform(0, hw, (n, 2)), conic, np.full(n, 4.0),
+                  rng.uniform(0.05, 0.5, n), rng.uniform(1.0, 5.0, n)))
+
+    f = lambda x: torch.as_tensor(np.concatenate(x).astype(np.float32), device=dev)
+    xy, conic, radius, opa, depth = (f([p[i] for p in parts]) for i in range(5))
+    n = xy.shape[0]
+    color = torch.as_tensor(rng.uniform(0, 1, (n, 3)).astype(np.float32), device=dev)
+    proj = ProjectedGaussians(xy=xy, depth=depth, conic=conic, color=color,
+                              opacity=opa, radius=radius,
+                              valid=torch.ones(n, dtype=torch.bool, device=dev))
+    every_tile = (-(-hw // tile_size)) ** 2
+    args, overflow, back = projected_inputs(proj, hw, hw, tile_size, every_tile,
+                                            4096)
+    invalid = torch.as_tensor(rng.uniform(size=n) < 0.03, device=dev)
+    args[0][invalid, 10] = 0.0
+    return args, overflow, back

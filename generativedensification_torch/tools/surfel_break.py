@@ -3,7 +3,7 @@
 
     python -m generativedensification_torch.tools.surfel_break [stages ...]
         [--scene A|B] [--scales default|free] [--tile-size 32] [--max-tiles 4]
-        [--device cuda]
+        [--enum-tiles 0] [--max-per-tile 4096] [--device cuda]
 
 The port of the JAX package's ``scripts/dev_surfel_break.py``.  Each stage is
 a variant of ``splat/probe_kernels.py::surfel_fwd_probe``, run in the given
@@ -82,10 +82,12 @@ def run(argv=None) -> dict:
     with torch.inference_mode():
         if a.scene == "A":
             args, si = scenes.surfel_bench_scene(dev, a.scales, a.tile_size,
-                                                 a.max_tiles, a.n, a.hw)
+                                                 a.max_tiles, a.n, a.hw,
+                                                 a.max_per_tile, a.enum_tiles)
         else:
             pkg, cam, cfg = scenes.model_view("2dgs", dev)
-            args, si = scenes.model_surfels(pkg, cam, cfg, a.tile_size, a.max_tiles)
+            args, si = scenes.model_surfels(pkg, cam, cfg, a.tile_size, a.max_tiles,
+                                            a.max_per_tile, a.enum_tiles)
         card = _header(dev, a.scene, a.reps)
         ts = args[7]
         print(f"{args[0].shape[0]} surfels, {args[5]}x{args[6]} tiles of {ts} px, "

@@ -29,6 +29,7 @@ from generativedensification_torch.splat.composite import (
 )
 from generativedensification_torch.splat.projection import project_gaussians
 from generativedensification_torch.splat import surfel, surfel_kernels
+from generativedensification_torch.tools import scenes
 
 torch.set_num_threads(1)
 
@@ -199,6 +200,32 @@ def test_cuda_bwd_matches_plain_and_repeats(cuda_device, ts, mode):
     scale = ref.abs().amax(dim=0).clamp(min=1e-30)
     assert float(scale.min()) > 0
     torch.testing.assert_close(out / scale, ref / scale, atol=5e-5, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ts", [16, 32])
+def test_cuda_kernels_on_adversarial_scene(cuda_device, ts):
+    """Kernels #1 and #2 on the footprint skip's adversarial scene
+    (``tools/scenes.py``: saturating tiles, Gaussians just outside sub-tile
+    edges with alpha within 0.1% of 1/255 there, opacities at 1/255,
+    near-singular conics, invalid rows): the forward bitwise equal to its
+    plain version, every backward mode within 5e-5 scaled and bitwise
+    repeatable."""
+    with torch.inference_mode():
+        args, _, _ = scenes.adversarial_scene(cuda_device, ts)
+        out = kernels.composite_fwd(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(out, kernels.composite_fwd_plain(*args))
+        gc4, g2 = _bwd_inputs(args, seed=4)
+        for mode in kernels.BWD_ROWS:
+            bargs = (*args[:4], gc4, g2, *args[4:])
+            a = kernels.composite_bwd(*bargs, mode=mode)
+            b = kernels.composite_bwd(*bargs, mode=mode)
+            torch.cuda.synchronize()
+            ref = kernels.composite_bwd_plain(*bargs, mode=mode)
+            assert torch.equal(a, b), mode
+            scale = ref.abs().amax(dim=0).clamp(min=1e-30)
+            torch.testing.assert_close(a / scale, ref / scale, atol=5e-5, rtol=0)
 
 
 # --------------------------------------------------------------------------
