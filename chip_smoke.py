@@ -9,7 +9,7 @@ Drives ``generativedensification_torch`` only (no JAX):
    CUDA versions and both TF32 flags;
 2. builds every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, all
    started together) and prints the build time and ``-Xptxas -v``
-   registers / shared memory; fails if kernel #1 or #2 spills;
+   registers / shared memory; fails if kernel #1, #2, #3 or #4 spills;
 3. kernel #1 phase: holds the forward compositor bitwise
    (``torch.equal``) against its plain PyTorch version and against the
    one-CTA-per-tile design it replaced (probe ``full``) on the ``bench.py`` scene A (512², 131,072
@@ -51,11 +51,17 @@ Drives ``generativedensification_torch`` only (no JAX):
    launches each, finite outputs of the documented shapes, peak memory,
    overflow and a device-time breakdown by stage;
 7. the 2DGS serving phases (``tpu.renderer=2dgs``, the same weights):
-   kernel #3 (surfel forward) against its plain version (atol 2e-4 on every
-   output row) on a small surfel scene (256², 20,000 surfels, seed 0) and on
-   scene B' (the model's 262,144 coarse surfels in view 0), kernel #4
-   (surfel backward) in both modes on scene B' (scaled 5e-5 per row,
-   bitwise repeatable), each timed with CUDA events; then the full-width
+   kernel #3 (surfel forward) bitwise (``torch.equal``) against its plain
+   version, and kernel #4 (surfel backward) in both modes against its
+   plain version (scaled 5e-5 per row, bitwise repeatable), on a small
+   surfel scene (256², 20,000 surfels, seed 0), on scene A' (the surfel
+   form of scene A), on the adversarial scene of the screen-circle skip
+   (``tools/scenes.py``, 256², 32 and 16 px tiles) and on scene B' (the
+   model's 262,144 coarse surfels in view 0) at the serving and the 2DGS
+   warmup budgets; #3 also bitwise against the one-CTA-per-tile design it
+   replaced (probe ``full``) on A' and B'; the skip's kept shares (from
+   the plain mirror ``surfel_kernels.subtile_touch``), each kernel timed
+   with CUDA events beside the earlier design; then the full-width
    serving forward with exactly 16 surfel-forward and 4 surfel-backward
    launches (and no 3DGS launch), finite 2DGS maps, peak memory, overflow
    and a device-time breakdown by stage;
@@ -253,11 +259,17 @@ def bwd_records(name: str, args, gt=None) -> dict:
     return recs
 
 
-def surfel_fwd_record(name: str, args, si) -> dict:
-    """Kernel #3 vs plain on one scene: agreement per output row, times and
-    the bound."""
+def surfel_fwd_record(name: str, args, si, per_tile: bool = False) -> dict:
+    """Kernel #3 vs plain on one scene: bitwise agreement, the screen-circle
+    skip's kept share of (slot, sub-tile) pairs and of circle tests
+    (``surfel_kernels.subtile_touch``, the plain mirror of the kernel's
+    predicate; the plain version with it mirrored also bitwise), times and
+    the bound from the circle tests the skip leaves; with ``per_tile``,
+    also bitwise against the one-CTA-per-tile design it replaced (probe
+    ``full``) and that design's time."""
     import torch
 
+    from generativedensification_torch.splat import probe_kernels as pk
     from generativedensification_torch.splat import surfel_kernels as sk
     from generativedensification_torch.tools.timing import (
         SURFEL_OPS_PER_CONTRIB,
@@ -265,6 +277,7 @@ def surfel_fwd_record(name: str, args, si) -> dict:
         SURFEL_OPS_PER_INSIDE,
         bound,
         cuda_ms,
+        once,
     )
 
     table, ids, starts, counts, planes, tiles_x, tiles_y, ts = args
@@ -272,87 +285,101 @@ def surfel_fwd_record(name: str, args, si) -> dict:
     torch.cuda.synchronize()
     if not torch.isfinite(out).all():
         fail(f"{name}: non-finite surfel compositor output")
+    ref = sk.surfel_fwd_plain(*args)
+    if not torch.equal(out, ref):
+        err_rows = (out - ref).abs().amax(dim=(0, 2)).tolist()
+        fail(f"{name}: surfel kernel differs from its plain version (max |diff| "
+             f"by row {dict(zip(sk.FWD_ROWS, err_rows))})")
+    touch = sk.subtile_touch(table, ids, starts, counts, tiles_x, tiles_y, ts)
     stats = {}
-    ref = sk.surfel_fwd_plain(*args, stats=stats)
-    err_rows = (out - ref).abs().amax(dim=(0, 2)).tolist()
-    err = max(err_rows)
-    if err > ATOL:
-        fail(f"{name}: surfel kernel vs plain max_abs_err {err} > {ATOL} "
-             f"(rows {dict(zip(sk.FWD_ROWS, err_rows))})")
+    mirrored, plain_ms = once(
+        lambda: sk.surfel_fwd_plain(*args, stats=stats, touch=touch), True)
+    if not torch.equal(mirrored, ref):
+        fail(f"{name}: the plain surfel version with the skip mirrored differs")
     ms = cuda_ms(lambda: sk.surfel_fwd(*args), reps=25)
-    plain_ms = cuda_ms(lambda: sk.surfel_fwd_plain(*args), reps=3, warmup=1)
+    extra = {}
+    if per_tile:
+        probe = pk.surfel_fwd_probe("full", *args)
+        torch.cuda.synchronize()
+        if not torch.equal(probe, out):
+            fail(f"{name}: the one-CTA-per-tile design (probe full) differs "
+                 "from kernel #3")
+        extra["per_tile_ms"] = cuda_ms(lambda: pk.surfel_fwd_probe("full", *args),
+                                       reps=25)
     n_tiles, npix = tiles_x * tiles_y, ts * ts
     live = int(counts.sum())
     n_bytes = (table.numel() * 4 + live * 4 + 2 * n_tiles * 4 + 8
                + n_tiles * len(sk.FWD_ROWS) * npix * 4)
-    ops = (stats["evals"] * SURFEL_OPS_PER_EVAL
-           + stats["inside"] * SURFEL_OPS_PER_INSIDE
-           + stats["contribs"] * SURFEL_OPS_PER_CONTRIB["fwd"])
-    rec = dict(scene=name, surfels=table.shape[0], live_pairs=live,
+    rest = (stats["inside"] * SURFEL_OPS_PER_INSIDE
+            + stats["contribs"] * SURFEL_OPS_PER_CONTRIB["fwd"])
+    rec = dict(scene=name, surfels=table.shape[0], tile_size=ts, live_pairs=live,
                overflow=int(si.overflow), evals=stats["evals"],
-               inside=stats["inside"], contribs=stats["contribs"], ms=ms,
-               plain_ms=plain_ms, max_abs_err=err,
-               max_abs_err_by_row=dict(zip(sk.FWD_ROWS, err_rows)),
-               alpha_mean=float(1.0 - out[:, 12].mean()), **bound(n_bytes, ops))
+               evals_kept=stats["evals_kept"], inside=stats["inside"],
+               contribs=stats["contribs"],
+               kept_share=float(touch.sum()) / max(1, live * touch.shape[0]),
+               evals_kept_share=stats["evals_kept"] / max(1, stats["evals"]),
+               ms=ms, plain_ms=plain_ms, max_abs_err=0.0, bitwise=True, **extra,
+               alpha_mean=float(1.0 - out[:, 12].mean()),
+               bound_unskipped_ms=bound(
+                   n_bytes, stats["evals"] * SURFEL_OPS_PER_EVAL + rest)["bound_ms"],
+               **bound(n_bytes, stats["evals_kept"] * SURFEL_OPS_PER_EVAL + rest))
     print(f"[kernel] surfel_fwd {json.dumps(rec)}")
     return rec
 
 
-def surfel_bwd_records(args, si, gt) -> dict:
+def surfel_bwd_records(name: str, args, si, gt=None) -> dict:
     """Kernel #4 vs plain in both modes on one scene, against the image-MSE
-    cotangent of ``gt`` (the selection pass's; ``full`` also gets seeded
-    cotangents on the other five maps, so that every row is exercised)."""
+    cotangent of ``gt`` (the selection pass's; a seeded image if None;
+    ``full`` also gets seeded cotangents on the other five maps, so that
+    every row is exercised): two launches bitwise equal, scaled 5e-5
+    against the plain version, times, and the bound from the circle tests
+    the screen-circle skip leaves."""
     import torch
 
-    from generativedensification_torch.splat import surfel
     from generativedensification_torch.splat import surfel_kernels as sk
-    from generativedensification_torch.splat.composite import mse_image_cotangent
+    from generativedensification_torch.tools.surfel_break import bwd_inputs
     from generativedensification_torch.tools.timing import (
         SURFEL_OPS_PER_CONTRIB,
         SURFEL_OPS_PER_EVAL,
         SURFEL_OPS_PER_INSIDE,
         bound,
         cuda_ms,
+        once,
     )
 
     table, ids, starts, counts, planes, tiles_x, tiles_y, ts = args
-    bg = torch.ones(3, device=table.device)
-    out = sk.surfel_fwd(*args)
-    maps = surfel._maps(out, bg, *si.dims)
-    g = torch.Generator(device=table.device).manual_seed(0)
-    noise = lambda x: 1e-7 * torch.randn(x.shape, generator=g, device=x.device)
-    cot = (mse_image_cotangent(maps[0], gt), *(noise(m) for m in maps[1:]))
+    rows = bwd_inputs(args, si, gt)
+    touch = sk.subtile_touch(table, ids, starts, counts, tiles_x, tiles_y, ts)
     n_tiles, npix = tiles_x * tiles_y, ts * ts
     live = int(counts.sum())
     recs = {}
     for mode, n_in in (("selonly", 4), ("full", 13)):
-        cot8, aux5, _ = surfel._bwd_rows(out, bg, cot, si.dims, mode)
-        bargs = (*args[:5], cot8, aux5, *args[5:])
+        bargs = (*args[:5], *rows[mode], *args[5:])
         k1 = sk.surfel_bwd(*bargs, mode=mode)
         k2 = sk.surfel_bwd(*bargs, mode=mode)
         torch.cuda.synchronize()
         if not torch.equal(k1, k2):
-            fail(f"surfel_bwd {mode}: two launches differ")
+            fail(f"surfel_bwd {mode} ({name}): two launches differ")
         if not torch.isfinite(k1).all():
-            fail(f"surfel_bwd {mode}: non-finite output")
+            fail(f"surfel_bwd {mode} ({name}): non-finite output")
         stats = {}
-        ref = sk.surfel_bwd_plain(*bargs, mode=mode, stats=stats)
+        ref, plain_ms = once(lambda: sk.surfel_bwd_plain(
+            *bargs, mode=mode, stats=stats, touch=touch), True)
         scale = ref.abs().amax(dim=0).clamp(min=1e-30)
         err = float(((k1 - ref) / scale).abs().max())
-        if err > GRAD_ATOL:
-            fail(f"surfel_bwd {mode}: scaled max err {err} > {GRAD_ATOL}")
+        if not err <= GRAD_ATOL:
+            fail(f"surfel_bwd {mode} ({name}): scaled max err {err} > {GRAD_ATOL}")
         ms = cuda_ms(lambda: sk.surfel_bwd(*bargs, mode=mode), reps=21)
-        plain_ms = cuda_ms(lambda: sk.surfel_bwd_plain(*bargs, mode=mode),
-                           reps=2, warmup=0)
         w = sk.SURFEL_BWD_ROWS[mode]
         # the cotangent and total rows the mode reads (selonly: gC and G2)
         n_bytes = (table.numel() * 4 + live * 4 + 2 * n_tiles * 4 + 8
                    + n_in * n_tiles * npix * 4 + ids.shape[0] * w * 4)
-        ops = (stats["evals"] * SURFEL_OPS_PER_EVAL
+        ops = (stats["evals_kept"] * SURFEL_OPS_PER_EVAL
                + stats["inside"] * SURFEL_OPS_PER_INSIDE
                + stats["contribs"] * SURFEL_OPS_PER_CONTRIB[mode])
-        recs[mode] = dict(mode=mode, ms=ms, plain_ms=plain_ms, max_scaled_err=err,
-                          bitwise_repeatable=True, evals=stats["evals"],
+        recs[mode] = dict(scene=name, mode=mode, ms=ms, plain_ms=plain_ms,
+                          max_scaled_err=err, bitwise_repeatable=True,
+                          evals=stats["evals"], evals_kept=stats["evals_kept"],
                           inside=stats["inside"], contribs=stats["contribs"],
                           live_pairs=live, **bound(n_bytes, ops))
         print(f"[kernel] surfel_bwd {json.dumps(recs[mode])}")
@@ -1119,8 +1146,8 @@ def main() -> int:
         for line in lib.build_log.splitlines():
             if "registers" in line or "Compiling entry" in line or "spill" in line:
                 print(f"[build] {line.strip()}")
-    # the sub-tile kernels #1 and #2 must not spill
-    for name in ("composite_fwd", "composite_bwd"):
+    # the sub-tile kernels #1-#4 must not spill
+    for name in ("composite_fwd", "composite_bwd", "surfel_fwd", "surfel_bwd"):
         spills = [ln.strip() for ln in libs[name].build_log.splitlines()
                   if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads"
                   not in ln]
@@ -1215,13 +1242,29 @@ def main() -> int:
         out2 = net2(batch, with_fine=True)                     # warm-up
         torch.cuda.synchronize()
         check_outputs(out2, 1, V_TOTAL, HW, HW, n_coarse, n_fine, surfels=True)
-        # kernel #3 on a small scene, then #3 and #4 on scene B': the model's
-        # 262,144 coarse surfels in view 0 (the shapes the main path gives)
-        sargs, si = scenes.surfel_scene(dev)
-        surfel_small_rec = surfel_fwd_record("surfels_256_20k", sargs, si)
-        sargs, si = scenes.model_surfels(out2["render_pkg"][0], cam, cfg2)
-        surfel_rec = surfel_fwd_record("model_512_262k_view0_surfels", sargs, si)
-        surfel_bwd_recs = surfel_bwd_records(sargs, si, batch["tar_rgb"][0, 0])
+        # kernels #3 and #4 on a small scene, on scene A', on the
+        # screen-circle skip's adversarial scene (32 and 16 px tiles), and on
+        # scene B': the model's 262,144 coarse surfels in view 0 (the shapes
+        # the main path gives) at the serving and the 2DGS warmup budgets
+        surfel_scenes, surfel_bwd = {}, {}
+        runs = [("surfels_256_20k", *scenes.surfel_scene(dev), None, False),
+                ("surfels_bench_512_131k", *scenes.surfel_bench_scene(dev), None,
+                 True)]
+        runs += [(f"surfel_adversarial_256_ts{ts}",
+                  *scenes.surfel_adversarial_scene(dev, ts), None, False)
+                 for ts in (32, 16)]
+        max_tiles, enum_tiles, max_per_tile = WARMUP_BUDGETS["2dgs"]
+        for label, budgets in (("", ()), ("_warmup",
+                                          (None, max_tiles, max_per_tile, enum_tiles))):
+            sargs, si = scenes.model_surfels(out2["render_pkg"][0], cam, cfg2, *budgets)
+            runs.append((f"model_512_262k_view0_surfels{label}", sargs, si,
+                         batch["tar_rgb"][0, 0], True))
+        for label, sargs, si, gt, per_tile in runs:
+            surfel_scenes[label] = surfel_fwd_record(label, sargs, si, per_tile)
+            surfel_bwd[label] = surfel_bwd_records(label, sargs, si, gt)
+        del runs, sargs
+        surfel_rec = surfel_scenes["model_512_262k_view0_surfels"]
+        surfel_bwd_recs = surfel_bwd["model_512_262k_view0_surfels"]
         out_s, times_s, launches_s, peak_s = timed_forwards(
             net2, batch, True, expect(surfel_fwd=2 * V_TOTAL, surfel_bwd=N_VIEWS))
         check_outputs(out_s, 1, V_TOTAL, HW, HW, n_coarse, n_fine, surfels=True)
@@ -1398,8 +1441,7 @@ def main() -> int:
         "scenes": [bench_rec, model_rec, warm_rec],
         "composite_bwd": {"A": bwd_recs_a, "B": bwd_recs, "B_warmup": bwd_recs_warm},
         "adversarial": adversarial,
-        "surfel_scenes": [surfel_small_rec, surfel_rec],
-        "surfel_bwd": surfel_bwd_recs, "probes": probes}))
+        "surfel_scenes": surfel_scenes, "surfel_bwd": surfel_bwd, "probes": probes}))
     print(card)
     print(json.dumps({"kernels": recs}))
     print(json.dumps({"ok": True, "device": {

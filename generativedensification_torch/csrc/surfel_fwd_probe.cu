@@ -3,10 +3,12 @@
 //
 // Replaces the TPU probe kernel `make_fwd` of the JAX package's
 // scripts/dev_surfel_break.py (the stage ladder of pallas_surfel_fwd).  Each
-// variant is an instantiation of the production kernel's own body
-// (surfel_fwd.cuh), so a probe times exactly the production code minus the
-// stages it leaves out.  What each stage writes is in the header; the plain
-// PyTorch versions are splat/probe_kernels.py.
+// variant is an instantiation of the one-CTA-per-tile body (surfel_fwd.cuh)
+// that was the production kernel before the sub-tile design of
+// surfel_subtile.cuh, so a probe times exactly that code minus the stages it
+// leaves out; `full` is bitwise the production kernel.  What each stage
+// writes is in the header; the plain PyTorch versions are
+// splat/probe_kernels.py.
 //
 // Variants, by the index the wrapper passes (probe_kernels.SURFEL_VARIANTS):
 //   0 noop  1 load  2 alpha  3 geomd  4 trans  5 acc  6 full

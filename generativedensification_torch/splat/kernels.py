@@ -326,6 +326,16 @@ def _subtile_of_pixel(tile_size: int, dev) -> torch.Tensor:
             + torch.div(x, SUBTILE, rounding_mode="floor"))
 
 
+def _segment_slots(tile_starts, tile_counts):
+    """The slots of every tile's segment and the tile of each, (S,) each."""
+    counts = tile_counts.long()
+    dev = counts.device
+    tile = torch.repeat_interleave(torch.arange(counts.shape[0], device=dev), counts)
+    rank = torch.arange(tile.shape[0], device=dev) - (torch.cumsum(counts, 0)
+                                                      - counts)[tile]
+    return tile, tile_starts.long()[tile] + rank
+
+
 def _touch_mask(touch, slot, q_of_pixel) -> torch.Tensor:
     """(T, K, ts²): whether the skip keeps slot[t, k] for each pixel's
     sub-tile."""
@@ -402,11 +412,7 @@ def subtile_touch(table, sorted_ids, tile_starts, tile_counts, tiles_x: int,
     side = tile_size // SUBTILE
     if side * SUBTILE != tile_size:
         raise ValueError(f"tile size {tile_size} is not a multiple of {SUBTILE}")
-    counts = tile_counts.long()
-    tile = torch.repeat_interleave(torch.arange(num_tiles, device=dev), counts)
-    rank = torch.arange(tile.shape[0], device=dev) - (torch.cumsum(counts, 0)
-                                                      - counts)[tile]
-    slot = tile_starts.long()[tile] + rank          # the slots of every segment
+    tile, slot = _segment_slots(tile_starts, tile_counts)
     rows = table[sorted_ids[slot].long()]
     f32 = torch.float32
     gx = rows[:, 0] - ((tile % tiles_x) * tile_size).to(f32)

@@ -11,8 +11,10 @@ that was the production kernel before the sub-tile redesign
 (``csrc/composite_fwd.cuh``; ``full`` is that design whole) and, as
 ``sub_noexit`` / ``sub_noskip``, the production sub-tile kernel
 (``csrc/composite_subtile.cuh``) without its per-sub-tile exit or its
-footprint skip; for the surfel forward the production body
-(``csrc/surfel_fwd.cuh``).  ``tools/kernel_break.py`` and
+footprint skip; for the surfel forward the one-CTA-per-tile body that was
+the production kernel before its sub-tile redesign (``csrc/surfel_fwd.cuh``;
+``full`` is that design whole, bitwise the production kernel).
+``tools/kernel_break.py`` and
 ``tools/surfel_break.py`` time them.  Serving and training never call them.
 
 ``composite_fwd_probe`` and ``surfel_fwd_probe`` take the production

@@ -31,6 +31,11 @@ Forward output: (T, 13, ts²) f32 rows ``FWD_ROWS``.  Backward inputs: cot8
 (T, 8, ts²) rows [gC (3), gN (3), gDexp, gdist] and aux5 (T, 5, ts²) rows
 [G2, gDmed, ΣW, M1, M2] (``surfel.composite_surfels_backward`` builds both).
 Backward output: (P, SURFEL_BWD_ROWS[mode]) f32, one row per slot.
+
+The CUDA kernels composite each tile as 16 x 16 sub-tiles and skip the slots
+whose screen circle cannot reach a sub-tile's pixel centres; ``subtile_touch``
+is that predicate in PyTorch, and the plain versions take its result as
+``touch=`` (dropped pairs culled, which changes no bit).
 """
 
 from __future__ import annotations
@@ -38,7 +43,16 @@ from __future__ import annotations
 import torch
 
 from . import kernels
-from .kernels import CHUNK, T_EPS, build, launch_counts
+from .kernels import (
+    CHUNK,
+    SUBTILE,
+    T_EPS,
+    _segment_slots,
+    _subtile_of_pixel,
+    _touch_mask,
+    build,
+    launch_counts,
+)
 
 ALPHA_MAX = 0.99
 ALPHA_MIN = 1.0 / 255.0
@@ -59,6 +73,12 @@ FWD_ROWS = ("r", "g", "b", "nx", "ny", "nz", "dexp", "dmed", "dist", "wsum",
 # ``selonly`` the AbsGS |d/dscreen x|, |d/dscreen y| sums
 SURFEL_BWD_ROWS = {"full": 19, "selonly": 2}
 _BWD_MODE_ID = {"full": 0, "selonly": 1}
+# the margins of the CUDA kernels' screen-circle skip
+# (csrc/surfel_subtile.cuh): a slot is dropped for a sub-tile only where the
+# squared distance from its centre to the sub-tile's pixel centres exceeds
+# rad² (1 + SKIP_MARGIN_REL) + SKIP_MARGIN_ABS
+SKIP_MARGIN_REL = 2.0 ** -16
+SKIP_MARGIN_ABS = 2.0 ** -100
 
 
 def _check_inputs(table, sorted_ids, tile_starts, tile_counts, planes,
@@ -111,10 +131,14 @@ def _pixel_coords(tiles_x, tiles_y, ts, dev):
     return X.to(f32), Y.to(f32)
 
 
-def _chunk_geometry(table, sorted_ids, starts, counts, c0, X, Y):
+def _chunk_geometry(table, sorted_ids, starts, counts, c0, X, Y, touch=None,
+                    q_of_pixel=None):
     """One chunk of CHUNK slots of every tile, gathered and evaluated as a
     (T, CHUNK, ts²) block in the kernels' order and rounding.  Returns the
-    slot rows, the in-range mask and the per-(slot, pixel) quantities."""
+    slot rows, the in-range mask and the per-(slot, pixel) quantities;
+    with ``touch`` (``subtile_touch``'s mask and ``q_of_pixel``, each
+    pixel's sub-tile) the pairs the skip drops fail the circle test, and
+    ``kept`` marks the pairs the skip leaves."""
     P = sorted_ids.shape[0]
     k = torch.arange(CHUNK, device=table.device)[None, :]
     in_range = (c0 + k) < counts                                # (T, K)
@@ -126,6 +150,9 @@ def _chunk_geometry(table, sorted_ids, starts, counts, c0, X, Y):
     dy = Yb - col(PY)
     d2 = dx * dx + dy * dy
     inside = (d2 <= col(RAD) * col(RAD)) & in_range[..., None]
+    kept = None if touch is None else _touch_mask(touch, slot, q_of_pixel)
+    if kept is not None:
+        inside = inside & kept
     crx = (col(AX) + Xb * col(BX)) + Yb * col(CX)
     cry = (col(AY) + Xb * col(BY)) + Yb * col(CY)
     crz = (col(AZ) + Xb * col(BZ)) + Yb * col(CZ)
@@ -140,8 +167,77 @@ def _chunk_geometry(table, sorted_ids, starts, counts, c0, X, Y):
     alpha = torch.clamp(col(OPA) * torch.exp(power), max=ALPHA_MAX)
     ok = inside & (alpha >= ALPHA_MIN) & (zhit > NEAR_CULL)
     return dict(rows=rows, slot=slot, in_range=in_range, inside=inside, ok=ok,
-                alpha=alpha, zhit=zhit, crx=crx, cry=cry, crz=crz, rz=rz,
+                kept=kept, alpha=alpha, zhit=zhit, crx=crx, cry=cry, crz=crz, rz=rz,
                 sel3=g3d >= g2d, dx=dx, dy=dy)
+
+
+def subtile_keep(px, py, rad, x0, y0) -> torch.Tensor:
+    """The screen-circle skip's predicate, elementwise (f32 tensors that
+    broadcast): can the circle of centre (px, py) and radius ``rad`` reach
+    a pixel centre of the 16 x 16 rectangle [x0, x0 + 15] x [y0, y0 + 15]
+    (global pixel coordinates) under the kernels' rounded test
+    d² <= rad·rad?  The PyTorch mirror of
+    ``csrc/surfel_subtile.cuh::circle_keep``, operation for operation in
+    f32: e² = ex² + ey², with ex the distance from px to the rectangle's
+    column range (0 inside it) and ey likewise, against
+    rad² (1 + SKIP_MARGIN_REL) + SKIP_MARGIN_ABS.  Keeps every slot with a
+    non-finite centre or radius."""
+    f32 = torch.float32
+    zero = torch.zeros((), dtype=f32, device=px.device)
+    x0 = torch.as_tensor(x0, dtype=f32, device=px.device)
+    y0 = torch.as_tensor(y0, dtype=f32, device=px.device)
+    x1, y1 = x0 + (SUBTILE - 1), y0 + (SUBTILE - 1)
+    ex = torch.where(px < x0, x0 - px, torch.where(px > x1, px - x1, zero))
+    ey = torch.where(py < y0, y0 - py, torch.where(py > y1, py - y1, zero))
+    e2 = ex * ex + ey * ey
+    rad2 = rad * rad
+    keep = ~(e2 > rad2 + (SKIP_MARGIN_REL * rad2 + SKIP_MARGIN_ABS))
+    finite = torch.isfinite(px) & torch.isfinite(py) & torch.isfinite(rad)
+    return torch.where(finite, keep, True)
+
+
+def subtile_touch(table, sorted_ids, tile_starts, tile_counts, tiles_x: int,
+                  tiles_y: int, tile_size: int) -> torch.Tensor:
+    """The screen-circle skip of the CUDA surfel kernels for every
+    (sub-tile, slot): a (ts² / 256, P) bool tensor, row q = qy * (ts / 16) +
+    qx the tile's 16 x 16 sub-tile, True where the kernels keep the slot for
+    that sub-tile of its tile (``subtile_keep``), False for slots in no
+    tile's segment.  Measurement and tests only: the kernels decide on the
+    card."""
+    num_tiles = tiles_x * tiles_y
+    kernels._check_inputs(table, sorted_ids, tile_starts, tile_counts, num_tiles,
+                          TABLE_W)
+    dev = table.device
+    side = tile_size // SUBTILE
+    if side * SUBTILE != tile_size:
+        raise ValueError(f"tile size {tile_size} is not a multiple of {SUBTILE}")
+    tile, slot = _segment_slots(tile_starts, tile_counts)
+    rows = table[sorted_ids[slot].long()]
+    ox = (tile % tiles_x) * tile_size
+    oy = torch.div(tile, tiles_x, rounding_mode="floor") * tile_size
+    touch = torch.zeros((side * side, sorted_ids.shape[0]), dtype=torch.bool,
+                        device=dev)
+    for q in range(side * side):
+        x0 = (ox + (q % side) * SUBTILE).to(torch.float32)
+        y0 = (oy + (q // side) * SUBTILE).to(torch.float32)
+        touch[q, slot] = subtile_keep(rows[:, PX], rows[:, PY], rows[:, RAD], x0, y0)
+    return touch
+
+
+def _count_evals(n, alive, g, j):
+    """Add slot j's (slot, live pixel) evaluations of a chunk to the
+    counts ``n``: all of them, those the skip leaves and those inside the
+    circle."""
+    live = alive & g["in_range"][:, j:j + 1]
+    n["evals"] += live.sum()
+    n["evals_kept"] += (live if g["kept"] is None else live & g["kept"][:, j]).sum()
+    n["inside"] += (live & g["inside"][:, j]).sum()
+
+
+def _report(stats, n, touch):
+    if stats is not None:
+        stats.update({k: int(v) for k, v in n.items()
+                      if k != "evals_kept" or touch is not None})
 
 
 def _mapped_depth(zhit, planes):
@@ -154,16 +250,20 @@ def _mapped_depth(zhit, planes):
 
 def surfel_fwd_plain(table, sorted_ids, tile_starts, tile_counts, planes,
                      tiles_x: int, tiles_y: int, tile_size: int,
-                     stats: dict | None = None) -> torch.Tensor:
+                     stats: dict | None = None,
+                     touch: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch version of the forward kernel: chunks of CHUNK slots of
     every tile are gathered and their alpha computed as one (T, CHUNK, ts²)
     block; the transmittance chain then steps through the chunk slot by
     slot, in the kernel's order and rounding, so this version is the
     kernel's bit-level reference.
 
-    ``stats``, if given, receives the (slot, live pixel) evaluations, those
-    inside the slot's circle, and the contributing pairs (the kernel's
-    data-dependent work, for its roofline bound)."""
+    ``touch``, if given (``subtile_touch``'s (sub-tiles, P) mask), culls the
+    (slot, sub-tile) pairs it drops, as the kernel's screen-circle skip
+    does; the output is the same.  ``stats``, if given, receives the
+    (slot, live pixel) evaluations, those the skip leaves (``evals_kept``,
+    with ``touch``), those inside the slot's circle, and the contributing
+    pairs (the kernel's data-dependent work, for its roofline bound)."""
     dev = table.device
     f32 = torch.float32
     num_tiles = tiles_x * tiles_y
@@ -175,21 +275,21 @@ def surfel_fwd_plain(table, sorted_ids, tile_starts, tile_counts, planes,
     dexp, dmed, wsum, m1, m2 = zero(), zero(), zero(), zero(), zero()
     alive = torch.ones((num_tiles, npix), dtype=torch.bool, device=dev)
     n = {k: torch.zeros((), dtype=torch.int64, device=dev)
-         for k in ("evals", "inside", "contribs")}
+         for k in ("evals", "evals_kept", "inside", "contribs")}
+    q_of_pixel = None if touch is None else _subtile_of_pixel(tile_size, dev)
 
     starts = tile_starts.long()[:, None]
     counts = tile_counts.long()[:, None]
     max_count = int(tile_counts.max()) if num_tiles else 0
     for c0 in range(0, max_count, CHUNK):
-        g = _chunk_geometry(table, sorted_ids, starts, counts, c0, X, Y)
+        g = _chunk_geometry(table, sorted_ids, starts, counts, c0, X, Y, touch,
+                            q_of_pixel)
         m, _, _ = _mapped_depth(g["zhit"], planes)
         cols = g["rows"][..., R:NZ + 1].permute(1, 2, 0)        # (K, 6, T)
         for j in range(min(CHUNK, max_count - c0)):
             a_j, z_j, m_j = g["alpha"][:, j], g["zhit"][:, j], m[:, j]
             if stats is not None:
-                live = alive & g["in_range"][:, j:j + 1]
-                n["evals"] += live.sum()
-                n["inside"] += (live & g["inside"][:, j]).sum()
+                _count_evals(n, alive, g, j)
             use = alive & g["ok"][:, j]
             U = T * (1.0 - a_j)
             stop = use & (U < T_EPS)
@@ -206,8 +306,7 @@ def surfel_fwd_plain(table, sorted_ids, tile_starts, tile_counts, planes,
             T = torch.where(take, U, T)
             if stats is not None:
                 n["contribs"] += take.sum()
-    if stats is not None:
-        stats.update({k: int(v) for k, v in n.items()})
+    _report(stats, n, touch)
     dist = wsum * m2 - m1 * m1
     return torch.stack([*acc, dexp, dmed, dist, wsum, m1, m2, T], dim=1)
 
@@ -256,8 +355,8 @@ def surfel_bwd(table, sorted_ids, tile_starts, tile_counts, planes, cot8, aux5,
 
 def surfel_bwd_plain(table, sorted_ids, tile_starts, tile_counts, planes, cot8,
                      aux5, tiles_x: int, tiles_y: int, tile_size: int,
-                     mode: str = "full",
-                     stats: dict | None = None) -> torch.Tensor:
+                     mode: str = "full", stats: dict | None = None,
+                     touch: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch version of the backward kernel.  The chain (alpha, T,
     the include test and the prefix of cw · w) steps slot by slot in the
     kernel's order and rounding, as the forward's plain version does; each
@@ -272,7 +371,7 @@ def surfel_bwd_plain(table, sorted_ids, tile_starts, tile_counts, planes, cot8,
     (``full``: with gz = w·gDexp + dL/dm·dm/dz + gDmed at the median
     crossing) or the screen-space filter branch, whichever set the power.
 
-    ``stats``, if given, receives the counts of ``surfel_fwd_plain``."""
+    ``touch`` and ``stats`` as in ``surfel_fwd_plain``."""
     dev = table.device
     f32 = torch.float32
     num_tiles = tiles_x * tiles_y
@@ -289,21 +388,21 @@ def surfel_bwd_plain(table, sorted_ids, tile_starts, tile_counts, planes, cot8,
     G2, gdmed, wtot, m1tot, m2tot = aux5.unbind(1)
     zero = torch.zeros((), dtype=f32, device=dev)
     n = {k: torch.zeros((), dtype=torch.int64, device=dev)
-         for k in ("evals", "inside", "contribs")}
+         for k in ("evals", "evals_kept", "inside", "contribs")}
+    q_of_pixel = None if touch is None else _subtile_of_pixel(tile_size, dev)
 
     starts = tile_starts.long()[:, None]
     counts = tile_counts.long()[:, None]
     max_count = int(tile_counts.max()) if num_tiles else 0
     for c0 in range(0, max_count, CHUNK):
-        g = _chunk_geometry(table, sorted_ids, starts, counts, c0, X, Y)
+        g = _chunk_geometry(table, sorted_ids, starts, counts, c0, X, Y, touch,
+                            q_of_pixel)
         m, F, znear = _mapped_depth(g["zhit"], planes)
         rows = g["rows"]
         for j in range(min(CHUNK, max_count - c0)):
             a_j, z_j = g["alpha"][:, j], g["zhit"][:, j]
             if stats is not None:
-                live = alive & g["in_range"][:, j:j + 1]
-                n["evals"] += live.sum()
-                n["inside"] += (live & g["inside"][:, j]).sum()
+                _count_evals(n, alive, g, j)
             use = alive & g["ok"][:, j]
             one_m = 1.0 - a_j
             U = T * one_m
@@ -361,6 +460,5 @@ def surfel_bwd_plain(table, sorted_ids, tile_starts, tile_counts, planes, cot8,
             T = torch.where(take, U, T)
             if stats is not None:
                 n["contribs"] += take.sum()
-    if stats is not None:
-        stats.update({k: int(v) for k, v in n.items()})
+    _report(stats, n, touch)
     return out

@@ -205,19 +205,21 @@ def bwd_breakdown(args, back, reps: int = REPS) -> list[dict]:
     return recs
 
 
-def _parent_kernel(csrc: Path, name: str):
-    """``gd_<name>`` of ``csrc/<name>.cu`` (a parent commit's sources), built
-    with the port's nvcc flags into ``build/parent/`` and loaded with the
-    current wrapper's argument types."""
+def _parent_kernel(csrc: Path, name: str, defines: tuple = ()):
+    """``gd_<name>`` of ``csrc/<name>.cu`` (a parent commit's sources, or
+    the current ones with other ``-D`` ``defines``), built with the port's
+    nvcc flags into ``build/parent/`` and loaded with the current wrapper's
+    argument types."""
     src = csrc / f"{name}.cu"
+    flags = (*kernels.NVCC_FLAGS, *(f"-D{d}" for d in defines))
     body = src.read_bytes() + b"".join(h.read_bytes()
                                        for h in sorted(csrc.glob("*.cuh")))
-    tag = hashlib.sha256(body + " ".join(kernels.NVCC_FLAGS).encode()).hexdigest()[:16]
+    tag = hashlib.sha256(body + " ".join(flags).encode()).hexdigest()[:16]
     out = kernels._BUILD_DIR / "parent" / f"{name}_{tag}.so"
     if not out.exists():
         out.parent.mkdir(parents=True, exist_ok=True)
-        proc = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(out),
-                               str(src)], capture_output=True, text=True)
+        proc = subprocess.run([kernels._nvcc(), *flags, "-o", str(out), str(src)],
+                              capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}\n{proc.stderr}")
     fn = getattr(ctypes.CDLL(str(out)), f"gd_{name}")
@@ -300,14 +302,25 @@ def versus_parent(args, csrc: Path, reps: int = REPS) -> dict:
     return recs
 
 
-def e2e_versus_parent(csrc: Path, dev, reps: int = 7) -> dict:
-    """The serving forward (the full-width network from seed 0 on the probe
-    batch, ``with_fine=True``) and a 3DGS train micro-step (the training
-    configuration at the warmup budgets 9 / 16 / 8192, accumulation 2)
-    with the parent's kernels #1 and #2 in place of the current ones, in
-    turns (parent, current, current, parent), ``reps`` calls per turn after
-    one warm-up: host clock around each call and a synchronize; per side
-    the median and quartiles of its 2 x ``reps`` calls."""
+# the train step's warmup budgets (max_tiles, enum_tiles, max_per_tile) per
+# renderer (generativedensification_tpu/train/train.py:126-133)
+WARMUP_BUDGETS = {"3dgs": (9, 16, 8192), "2dgs": (16, 25, 16384)}
+# the compositor kernels of each renderer
+RENDERER_KERNELS = {"3dgs": ("composite_fwd", "composite_bwd"),
+                    "2dgs": ("surfel_fwd", "surfel_bwd")}
+
+
+def e2e_versus_parent(csrc: Path, dev, reps: int = 7,
+                      renderer: str = "3dgs") -> dict:
+    """The serving forward (the full-width network with ``tpu.renderer``
+    ``renderer`` from seed 0 on the probe batch, ``with_fine=True``) and a
+    train micro-step of that renderer (the training configuration at its
+    warmup budgets, accumulation 2; the 2DGS state past micro-step 1000, so
+    that its regularizers are on) with the parent's compositor kernels
+    (#1 / #2, or #3 / #4) in place of the current ones, in turns (parent,
+    current, current, parent), ``reps`` calls per turn after one warm-up:
+    host clock around each call and a synchronize; per side the median and
+    quartiles of its 2 x ``reps`` calls."""
     import statistics
     import time
     from types import SimpleNamespace
@@ -320,22 +333,25 @@ def e2e_versus_parent(csrc: Path, dev, reps: int = 7) -> dict:
     from ..train.state import create_train_state
     from ..train.step import make_train_step
 
-    names = ("composite_fwd", "composite_bwd")
+    names = RENDERER_KERNELS[renderer]
     libs = kernels.build(kernels.MAIN_KERNELS)
     sides = {"current": {n: libs[n].lib for n in names},
              "parent": {n: SimpleNamespace(**{f"gd_{n}": _parent_kernel(csrc, n)})
                         for n in names}}
     batch = make_probe_batch(1, 8, 512, 512, n_views=4, seed=0, device=dev)
-    net = Network(NetworkConfig.from_config(scenes.fine_config()), device=dev, seed=0)
+    net = Network(NetworkConfig.from_config(scenes.fine_config(
+        **{"tpu.renderer": renderer})), device=dev, seed=0)
     net.eval()
     tcfg = load_config()
-    for k, v in (("tpu.compute_dtype", "float32"), ("tpu.max_tiles", 9),
-                 ("tpu.enum_tiles", 16), ("tpu.max_per_tile", 8192),
-                 ("tpu.pair_budget", 0.0)):
+    max_tiles, enum_tiles, max_per_tile = WARMUP_BUDGETS[renderer]
+    for k, v in (("tpu.compute_dtype", "float32"), ("tpu.renderer", renderer),
+                 ("tpu.max_tiles", max_tiles), ("tpu.enum_tiles", enum_tiles),
+                 ("tpu.max_per_tile", max_per_tile), ("tpu.pair_budget", 0.0)):
         tcfg.set_dotted(k, v)
     tnet = Network(NetworkConfig.from_config(tcfg), device=dev, seed=0)
     opt = make_optimizer(tnet, accumulate=2)
     state = [create_train_state(tnet, opt, seed=0)]
+    state[0].step = 1001 if renderer == "2dgs" else 0
     step_fn = make_train_step(tnet, opt, Losses(), with_fine=True)
 
     def serve():

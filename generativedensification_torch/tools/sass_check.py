@@ -5,14 +5,16 @@ compile to the same machine code as a parent commit's sources.
     python -m generativedensification_torch.tools.sass_check \\
         --parent build/parent/generativedensification_torch/csrc
 
-Builds ``composite_fwd_probe.cu`` (the stage probes on the one-CTA-per-tile
-body ``composite_fwd.cuh``, which was kernel #1 before the sub-tile
-redesign and stays byte for byte) and ``surfel_fwd.cu`` (kernel #3 on
-``surfel_fwd.cuh``) from ``csrc/`` and from the parent's directory with the
-port's own ``nvcc`` flags (``splat/kernels.py::NVCC_FLAGS``), disassembles
-each library with ``cuobjdump -sass`` and compares every kernel present on
-both sides, by its mangled symbol, with its parent's.  ``composite_fwd.cu``
-itself changed on purpose with the redesign and is not compared.  Prints
+Builds ``composite_fwd_probe.cu`` and ``surfel_fwd_probe.cu`` (the stage
+probes on the one-CTA-per-tile bodies ``composite_fwd.cuh`` and
+``surfel_fwd.cuh``, which were kernels #1 and #3 before their sub-tile
+redesigns and stay byte for byte) from ``csrc/`` and from the parent's
+directory with the port's own ``nvcc`` flags
+(``splat/kernels.py::NVCC_FLAGS``), disassembles each library with
+``cuobjdump -sass`` and compares every kernel present on both sides, by its
+mangled symbol, with its parent's.  ``composite_fwd.cu`` and
+``surfel_fwd.cu`` themselves changed on purpose with the redesigns and are
+not compared.  Prints
 each kernel's ``-Xptxas -v`` line on both sides, lists the kernels only one
 side has, and exits 1 if any instruction or report of a shared kernel
 differs or the parent has a kernel the change lacks.  Needs the CUDA
@@ -30,7 +32,7 @@ from pathlib import Path
 
 from ..splat import kernels
 
-SOURCES = ("composite_fwd_probe", "surfel_fwd")
+SOURCES = ("composite_fwd_probe", "surfel_fwd_probe")
 _OUT = Path(__file__).resolve().parents[2] / "build" / "sass_check"
 
 

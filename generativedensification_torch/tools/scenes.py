@@ -10,7 +10,8 @@ kernels' own inputs (projected or set up, binned and packed by the port).
   (``model_view`` and ``model_gaussians`` / ``model_surfels``);
 - a small surfel scene (256², 20,000 surfels), ``surfel_scene``;
 - the adversarial scene of the compositors' footprint skip (256²,
-  ``adversarial_scene``).
+  ``adversarial_scene``), and of the surfel kernels' screen-circle skip
+  (``surfel_adversarial_scene``).
 
 The budgets (``max_tiles``, ``enum_tiles``, ``max_per_tile``) default to the
 serving configuration's and can be set to the train step's warmup budgets.
@@ -27,7 +28,13 @@ from ..core.transforms import normalize_quat
 from ..splat.binning import bin_gaussians
 from ..splat.composite import pack_table
 from ..splat.projection import ProjectedGaussians, project_gaussians
-from ..splat.surfel import pack_surfel_table, surfel_inputs
+from ..splat.surfel import (
+    SurfelInputs,
+    _surfel_coeffs,
+    _surfel_setup,
+    pack_surfel_table,
+    surfel_inputs,
+)
 
 
 def fine_config(**over):
@@ -286,3 +293,158 @@ def adversarial_scene(dev, tile_size=32, seed=0, hw=256):
     invalid = torch.as_tensor(rng.uniform(size=n) < 0.03, device=dev)
     args[0][invalid, 10] = 0.0
     return args, overflow, back
+
+
+def _ulps(x, k):
+    """``x`` (float32 array) moved by ``k`` (int array) float32 ulps."""
+    x = np.asarray(x, np.float32).copy()
+    k = np.asarray(k)
+    for step in range(int(np.abs(k).max(initial=0))):
+        move = np.abs(k) > step
+        x[move] = np.nextafter(x[move], np.where(k[move] > 0, np.inf, -np.inf)
+                               .astype(np.float32))
+    return x
+
+
+def surfel_adversarial_scene(dev, tile_size=32, seed=0, hw=256):
+    """The screen-circle skip's adversarial surfel scene at ``hw``²
+    (seeded), as the kernels' inputs and a ``SurfelInputs`` record.  Real
+    surfels (``_surfel_setup`` / ``_surfel_coeffs`` of points unprojected
+    from the chosen screen centres) with, in the table, these centres and
+    radii:
+
+    - opaque surfels facing the camera (opacity 0.95-1) in front over the
+      left half, with more than a staging batch of others behind them, so
+      that pixels, sub-tiles and tiles stop early;
+    - circles grazing a 16 px sub-tile's rectangle of pixel centres: the
+      centre 1-4 px beyond an edge with that integer radius, or beyond a
+      corner at offsets (3, 4) / (4, 3) with radius 5 and (1, 1) with
+      radius f32(√2), each centre moved by -3..3 float32 ulps, so that the
+      circle test passes or fails at the nearest pixel by a few ulps;
+    - radius 0 and 1 with centres exactly on pixel centres, half of them on
+      a sub-tile's edge pixels;
+    - surfels seen edge-on (normal across the view rays, cr_z near 0 at
+      some pixels: the depth pole);
+    - rows made non-finite after binning: centre x NaN, centre y +inf,
+      radius NaN, radius +inf (the kernels keep such slots; none makes an
+      output non-finite).
+
+    Binned with ``max_tiles`` = every tile of the view and a binning radius
+    2 px above the table's, so nothing overflows and every tile a circle
+    reaches holds it; the counts are those of a 256² view scaled to
+    ``hw``²."""
+    rng = np.random.default_rng(seed)
+    size = lambda n: max(1, round(n * hw * hw / 256 ** 2))
+    f = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    c2w = np.eye(4, dtype=np.float32)
+    c2w[2, 3] = -1.6
+    cam = Camera.from_c2w(f(c2w), 0.8, 0.8, hw, hw, znear=0.2, zfar=4.0)
+    fx, fy = float(cam.focal_x), float(cam.focal_y)
+    ident = np.tile(np.asarray([1.0, 0.0, 0.0, 0.0]), (1, 1))
+    parts = []   # (xy, rad, depth, opacity, screen sigma px, quats)
+
+    def facing(n):   # quaternions near the identity: the normal along the view
+        q = ident + rng.normal(size=(n, 4)) * 0.15
+        return q / np.linalg.norm(q, axis=1, keepdims=True)
+
+    n = size(500)   # opaque, in front, left half
+    sig = rng.uniform(3.0, 6.0, n)
+    parts.append((np.stack([rng.uniform(0, hw / 2, n), rng.uniform(0, hw, n)], -1),
+                  np.ceil(3.0 * sig + 4.3), rng.uniform(1.0, 1.2, n),
+                  rng.uniform(0.95, 1.0, n), sig, facing(n)))
+    n = size(2500)  # behind them: more than a batch per tile
+    sig = rng.uniform(3.0, 6.0, n)
+    parts.append((np.stack([rng.uniform(0, hw / 2, n), rng.uniform(0, hw, n)], -1),
+                  np.ceil(3.0 * sig + 4.3), rng.uniform(2.0, 2.5, n),
+                  rng.uniform(0.2, 0.9, n), sig, facing(n)))
+
+    n = size(1500)  # grazing circles
+    sub = hw // 16
+    x0 = rng.integers(0, sub, n) * 16.0
+    y0 = rng.integers(0, sub, n) * 16.0
+    kind = rng.integers(0, 4, n)          # x edge, y edge, corner 3-4-5, corner √2
+    r = rng.integers(1, 5, n).astype(np.float64)
+    side = rng.integers(0, 2, (n, 2))     # before the first / after the last pixel
+    along = rng.integers(0, 16, (n, 2)).astype(np.float64)
+    tri = np.where(rng.integers(0, 2, n)[:, None] == 0, [3.0, 4.0], [4.0, 3.0])
+    off = np.where(kind[:, None] == 2, tri, 1.0)
+    off = np.where(kind[:, None] == 0, np.stack([r, np.zeros(n)], -1), off)
+    off = np.where(kind[:, None] == 1, np.stack([np.zeros(n), r], -1), off)
+    rad = np.where(kind == 2, 5.0, np.where(kind == 3, np.float32(np.sqrt(2.0)), r))
+    lo = np.stack([x0, y0], -1)
+    edge = np.where(side == 0, lo - off, lo + 15.0 + off)
+    inside = lo + along                   # the free coordinate of an edge
+    xy = np.stack([np.where(kind == 1, inside[:, 0], edge[:, 0]),
+                   np.where(kind == 0, inside[:, 1], edge[:, 1])], -1)
+    xy = np.stack([_ulps(xy[:, 0], rng.integers(-3, 4, n)),
+                   _ulps(xy[:, 1], rng.integers(-3, 4, n))], -1)
+    sig = rng.uniform(1.0, 2.0, n) * np.maximum(rad, 1.0)
+    parts.append((xy, rad, rng.uniform(1.3, 1.9, n), rng.uniform(0.6, 1.0, n), sig,
+                  facing(n)))
+
+    n = size(300)   # radius 0 and 1 on pixel centres, half on sub-tile edges
+    px = rng.integers(0, hw, (n, 2)).astype(np.float64)
+    on_edge = rng.uniform(size=(n, 2)) < 0.5
+    px = np.where(on_edge, np.floor(px / 16) * 16 + np.where(
+        rng.uniform(size=(n, 2)) < 0.5, 0.0, 15.0), px)
+    parts.append((px, rng.integers(0, 2, n).astype(np.float64),
+                  rng.uniform(1.3, 1.9, n), rng.uniform(0.5, 1.0, n),
+                  rng.uniform(1.0, 3.0, n), facing(n)))
+
+    n = size(300)   # edge-on: the normal across the view rays
+    half = np.pi / 4
+    q = np.stack([np.full(n, np.cos(half)), np.zeros(n), np.full(n, np.sin(half)),
+                  np.zeros(n)], -1) + rng.normal(size=(n, 4)) * 0.02
+    sig = rng.uniform(4.0, 10.0, n)
+    parts.append((rng.uniform(0, hw, (n, 2)), np.ceil(3.0 * sig + 4.3),
+                  rng.uniform(1.3, 1.9, n), rng.uniform(0.5, 1.0, n), sig,
+                  q / np.linalg.norm(q, axis=1, keepdims=True)))
+
+    n = size(60)    # made non-finite after binning
+    sig = rng.uniform(2.0, 4.0, n)
+    parts.append((rng.uniform(0, hw, (n, 2)), np.ceil(3.0 * sig + 4.3),
+                  rng.uniform(1.3, 1.9, n), rng.uniform(0.5, 1.0, n), sig,
+                  facing(n)))
+    n_bad = n
+
+    xy, rad, depth, opa, sig, quats = (np.concatenate([p[i] for p in parts])
+                                      for i in range(6))
+    n = xy.shape[0]
+    cxy = np.asarray([(hw - 1) / 2.0, (hw - 1) / 2.0])
+    view = np.concatenate([(xy - cxy) * depth[:, None] / np.asarray([fx, fy]),
+                           depth[:, None]], -1)
+    means = view + c2w[:3, 3]
+    scales = np.repeat((sig * depth / fx)[:, None], 2, axis=1)
+    shs = rng.normal(size=(n, 4, 3)) * 0.3 + 0.2
+    M, normal, _, _, color, _, _ = _surfel_setup(
+        f(means), f(scales), f(quats), f(opa), f(shs), cam, 1)
+    acr, bcr, ccr, det = _surfel_coeffs(M)
+    xy_t, rad_t, opa_t = f(xy), f(rad), f(opa)
+
+    # binning: surfel_inputs' isotropic conic at a radius 2 px above the table's
+    rad_bin = rad_t + 2.0
+    tau = torch.log(torch.clamp(opa_t, min=1e-12) * 255.0)
+    lam = 2.0 * torch.clamp(tau, min=1e-6) / rad_bin ** 2
+    proj = ProjectedGaussians(xy=xy_t, depth=f(depth),
+                              conic=torch.stack([lam, torch.zeros_like(lam), lam], -1),
+                              color=color, opacity=opa_t, radius=rad_bin,
+                              valid=torch.ones(n, dtype=torch.bool, device=dev))
+    every_tile = (-(-hw // tile_size)) ** 2
+    bins = bin_gaussians(proj, hw, hw, tile_size=tile_size, max_tiles=every_tile)
+    counts = torch.clamp(bins.tile_counts, max=4096)
+    overflow = bins.overflow + (bins.tile_counts - counts).sum().to(torch.int32)
+
+    table = pack_surfel_table(acr, bcr, ccr, det, xy_t, rad_t, color, opa_t, normal)
+    bad = torch.arange(n - n_bad, n, device=dev)
+    nan, inf = float("nan"), float("inf")
+    for i, (col, v) in enumerate(((10, nan), (11, inf), (19, nan), (19, inf))):
+        table[bad[i::4], col] = v
+    planes = torch.stack([cam.znear, cam.zfar]).to(dtype=torch.float32)
+    si = SurfelInputs(
+        attrs=(acr, bcr, ccr, det, xy_t, rad_t, color, opa_t, normal), planes=planes,
+        bins=(bins.sorted_ids, bins.sorted_o, bins.depth_order, bins.tile_starts,
+              counts),
+        dims=(bins.tiles_x, bins.tiles_y, tile_size), n_slots=n * every_tile,
+        radius=rad_t, overflow=overflow)
+    return (table, bins.sorted_ids, bins.tile_starts, counts, planes,
+            *si.dims), si
