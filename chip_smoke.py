@@ -9,7 +9,12 @@ Drives ``generativedensification_torch`` only (no JAX):
    CUDA versions and both TF32 flags;
 2. builds every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, all
    started together) and prints the build time and ``-Xptxas -v``
-   registers / shared memory; fails if kernel #1, #2, #3 or #4 spills;
+   registers / shared memory; fails if kernel #1-#6 spills; then holds
+   kernels #5 / #6 bit for bit against their plain versions at the train
+   step's shapes and on edge cases (``tools/kernel_break.py``
+   ``REDUCE_CASES`` / ``TRANSPOSE_CASES``: bases that are not 16 B
+   aligned, ragged n and M, d = 1, widths outside the templated set and
+   too wide for one tile of #6, NaN and +-inf);
 3. kernel #1 phase: holds the forward compositor bitwise
    (``torch.equal``) against its plain PyTorch version and against the
    one-CTA-per-tile design it replaced (probe ``full``) on the ``bench.py`` scene A (512², 131,072
@@ -81,7 +86,9 @@ Drives ``generativedensification_torch`` only (no JAX):
    the loss and every gradient against ``gauss_dsum`` (1e-6 scaled), and
    kernels #5 / #6 bitwise against their plain versions on the inputs
    those micro-steps gave them, timed against the one PyTorch call that
-   computes the same function;
+   computes the same function; ``slots_to_gaussians`` timed under the three
+   strategies on the ``gauss_dsum`` step's inputs (device ms per
+   micro-step);
 9. evaluation phase: ``eval.evaluation.main`` on 2 ``synthetic`` scenes at
    512² with seeded weights, with each renderer;
 10. the tiny configuration with the fine stage on the card and on the CPU
@@ -753,15 +760,17 @@ def apos_phase(net, batch, step0: int, expect: dict, n_bwd: int):
     must agree and every parameter's gradient must lie within 1e-6 of the
     ``gauss_dsum`` step's after scaling by its max |value|.  The inputs of
     the first launch of each width and point count are kept for the kernel
-    phases (the shapes the train step gives the kernels).  The three micro-steps run
+    phases (the shapes the train step gives the kernels), and so are those
+    of ``slots_to_gaussians`` in the ``gauss_dsum`` step, with its calls per
+    width and point count.  The three micro-steps run
     under ``torch.use_deterministic_algorithms``, so that they differ only
     by the strategy: the gather backwards then add in a fixed order instead
     of with atomics; the ops that have no such algorithm are listed."""
     import torch
 
-    from generativedensification_torch.splat import composite
+    from generativedensification_torch.splat import composite, surfel
 
-    captured = {}
+    captured, calls = {}, {}
     real = {"reduce_slots": composite.reduce_slots,
             "transpose_rows": composite.transpose_rows}
 
@@ -773,10 +782,20 @@ def apos_phase(net, batch, step0: int, expect: dict, n_bwd: int):
             return real[name](x, *a)
         return run
 
+    def capture_slots(rows, sorted_o, depth_order, n_slots):
+        # the reduction's inputs and calls per (width, gaussians), one step
+        if composite.APOS_MODE == "gauss_dsum":
+            key = ("slots_to_gaussians", rows.shape[1], depth_order.shape[0])
+            captured.setdefault(key, (rows, sorted_o, depth_order, n_slots))
+            calls[key] = calls.get(key, 0) + 1
+        return stg(rows, sorted_o, depth_order, n_slots)
+
+    stg = composite.slots_to_gaussians
     mode0 = composite.APOS_MODE
     runs = {}
     composite.reduce_slots = capture("reduce_slots")
     composite.transpose_rows = capture("transpose_rows")
+    composite.slots_to_gaussians = surfel.slots_to_gaussians = capture_slots
     torch.use_deterministic_algorithms(True, warn_only=True)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -787,6 +806,7 @@ def apos_phase(net, batch, step0: int, expect: dict, n_bwd: int):
             composite.APOS_MODE = mode0
             composite.reduce_slots = real["reduce_slots"]
             composite.transpose_rows = real["transpose_rows"]
+            composite.slots_to_gaussians = surfel.slots_to_gaussians = stg
             net.zero_grad(set_to_none=True)
     nondet = sorted({str(w.message).split(" does not have")[0][:80] for w in caught
                      if "deterministic" in str(w.message)})
@@ -823,7 +843,7 @@ def apos_phase(net, batch, step0: int, expect: dict, n_bwd: int):
         if worst > APOS_GRAD_TOL:
             fail(f"GD_APOS_MODE={mode}: gradients differ from gauss_dsum by "
                  f"{worst} scaled at {worst_at} > {APOS_GRAD_TOL}")
-    return recs, captured
+    return recs, captured, calls
 
 
 def _apos_steps(net, batch, step0, expect, n_bwd, runs):
@@ -857,28 +877,30 @@ def _apos_steps(net, batch, step0, expect, n_bwd, runs):
         del opt, st
 
 
-def reduction_records(captured: dict, label: str) -> dict:
-    """Kernels #5 and #6 against their plain versions (bitwise) on the
-    inputs the train step gave them, with their times, the time of the one
-    PyTorch call that computes the same function, and the bound.  Each
-    timed call finds the 50 MB L2 cache cold (a 256 MB buffer is read
-    before it), as its bound assumes, and the card busy while the host
-    enqueues it (a ~0.5 ms spin ahead of the start event), so that the
-    interval holds the kernel and not the wrapper's host time."""
+def reduction_records(captured: dict, calls: dict, label: str) -> dict:
+    """Kernels #5 and #6 against their plain versions (bit for bit,
+    ``kernel_break.same_bits``) on the inputs the train step gave them, with
+    their times, the time of the one PyTorch call that computes the same
+    function, and the bound; then ``slots_to_gaussians`` under
+    ``gauss_dsum`` (no kernel), ``gauss`` (#5) and ``gauss_dsum_col`` (#6) on
+    the inputs the ``gauss_dsum`` step gave it, and its device ms per
+    micro-step (weighted by the step's calls).  Each timed call finds the
+    50 MB L2 cache cold and the card busy while the host enqueues it
+    (``timing.cold_l2``; ~2 ms for ``slots_to_gaussians``, whose
+    ``gauss_dsum_col`` enqueues 2 D + 4 launches), so that the interval
+    holds the device's work and not the host's enqueueing."""
     import torch
 
-    from generativedensification_torch.splat import kernels
-    from generativedensification_torch.tools.timing import bound, cuda_ms
+    from generativedensification_torch.splat import composite, kernels
+    from generativedensification_torch.tools.kernel_break import same_bits
+    from generativedensification_torch.tools.timing import bound, cold_l2, cuda_ms
 
     recs = {}
     dev = next(iter(captured.values()))[0].device
-    scratch = torch.zeros(64 * 2**20, dtype=torch.float32, device=dev)
-
-    def flush():
-        scratch.sum()
-        torch.cuda._sleep(1_000_000)
-
+    flush = cold_l2(dev)
     for (name, w, n_pts), args in sorted(captured.items()):
+        if name == "slots_to_gaussians":
+            continue
         if name == "reduce_slots":
             rows, n, d = args
             run = lambda: kernels.reduce_slots(rows, n, d)
@@ -895,7 +917,7 @@ def reduction_records(captured: dict, label: str) -> dict:
             shape = dict(w=w, M=cols.shape[1])
         out, ref = run(), plain()
         torch.cuda.synchronize()
-        if not torch.equal(out, ref):
+        if not same_bits(out, ref):
             fail(f"{name} {label} w={w}: kernel differs from its plain version "
                  f"(max |diff| {float((out - ref).abs().max())})")
         rec = dict(kernel=name, scene=label, **shape, bitwise_equal=True,
@@ -906,7 +928,25 @@ def reduction_records(captured: dict, label: str) -> dict:
                    **bound(n_bytes, ops))
         print(f"[kernel] {json.dumps(rec)}")
         recs[f"{name}_{label}_w{w}_n{n_pts}"] = rec
-    return recs
+    mode0, per_step = composite.APOS_MODE, {}
+    flush = cold_l2(dev, spin_cycles=4_000_000)
+    try:
+        for (name, w, n_pts), args in sorted(captured.items()):
+            if name != "slots_to_gaussians":
+                continue
+            count = calls[(name, w, n_pts)]
+            for mode in ("gauss_dsum", "gauss", "gauss_dsum_col"):
+                composite.APOS_MODE = mode
+                ms = cuda_ms(lambda: composite.slots_to_gaussians(*args), reps=21,
+                             before=flush)
+                per_step[mode] = per_step.get(mode, 0.0) + count * ms
+                print(f"[slot reduction] {label} {mode} w={w} n={n_pts}: {ms:.4f} ms "
+                      f"x {count} calls per micro-step")
+    finally:
+        composite.APOS_MODE = mode0
+    print(f"[slot reduction] {label} device ms per micro-step by GD_APOS_MODE: "
+          f"{json.dumps(per_step)}")
+    return dict(recs, slot_reduction_ms_per_micro_step=per_step)
 
 
 def train_phase(renderer: str, batch, expect: dict, device=None) -> dict:
@@ -953,8 +993,9 @@ def train_phase(renderer: str, batch, expect: dict, device=None) -> dict:
           f"kernels busy {busy['busy_ms']:.2f} ms "
           f"({busy['busy_ms'] / busy['wall_ms']:.1%}); top: {json.dumps(busy['top'])}")
     del opt, state, step_fn
-    apos, captured = apos_phase(net, batch, step0, expect, 2 * V_TOTAL + N_VIEWS)
-    reductions = reduction_records(captured, renderer)
+    apos, captured, calls = apos_phase(net, batch, step0, expect,
+                                       2 * V_TOTAL + N_VIEWS)
+    reductions = reduction_records(captured, calls, renderer)
     del net, captured
     torch.cuda.empty_cache()
     return dict(rec, apos=apos, reductions=reductions)
@@ -1117,7 +1158,7 @@ def main() -> int:
     from generativedensification_torch.eval import evaluation
     from generativedensification_torch.splat import kernels
     from generativedensification_torch.splat import probe_kernels as pk
-    from generativedensification_torch.tools import scenes, timing
+    from generativedensification_torch.tools import kernel_break, scenes, timing
     from generativedensification_torch.utils.device import resolve_device
 
     def expect(**launches):
@@ -1146,13 +1187,27 @@ def main() -> int:
         for line in lib.build_log.splitlines():
             if "registers" in line or "Compiling entry" in line or "spill" in line:
                 print(f"[build] {line.strip()}")
-    # the sub-tile kernels #1-#4 must not spill
-    for name in ("composite_fwd", "composite_bwd", "surfel_fwd", "surfel_bwd"):
+    # the main-path kernels #1-#6 must not spill
+    for name in kernels.MAIN_KERNELS:
         spills = [ln.strip() for ln in libs[name].build_log.splitlines()
                   if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads"
                   not in ln]
         if spills:
             fail(f"{name} spills registers: {spills}")
+
+    # -- 2b. kernels #5 and #6 bit for bit against their plain versions at
+    # the train step's shapes and on the edge cases (unaligned bases, ragged
+    # n and M, d = 1, widths outside the templated set and too wide for one
+    # tile of #6, NaN and +-inf)
+    with torch.inference_mode():
+        slot_cases = kernel_break.slot_edge_cases(dev)
+    bad = [k for k, r in slot_cases.items()
+           if not r["same_bits"] or ("offset" in k) == r["aligned"]]
+    print(f"[slot kernels] {len(slot_cases)} cases: {json.dumps(slot_cases)}")
+    if bad:
+        fail(f"kernels #5 / #6 differ from their plain versions (or a base is "
+             f"aligned where it must not be) on {bad}")
+    torch.cuda.empty_cache()
 
     # -- 3. kernels #1 and #2, scene A: bench.py's scene; the adversarial
     # scene of the footprint skip at both tile sizes

@@ -4,6 +4,8 @@ on the card, from its stage probes.
     python -m generativedensification_torch.tools.kernel_break [stages ...]
         [--scene A|B] [--tile-size 32] [--max-tiles 4] [--enum-tiles 0]
         [--max-per-tile 4096] [--bwd | --parent DIR [--e2e]] [--device cuda]
+    python -m generativedensification_torch.tools.kernel_break --slots
+        [--parent DIR]
 
 The port of the JAX package's ``scripts/dev_kernel_break.py`` (and, with
 ``--bwd``, of ``scripts/dev_bwd_break.py``).  Each stage is a variant of
@@ -41,6 +43,16 @@ under the current ``GD_APOS_MODE``, the whole ``composite_backward`` in
 each mode, and the cumulative prefixes pre_a-pre_d of the ``noabs``
 backward that the train step runs.
 
+``--parent DIR`` also holds kernels #5 (``reduce_slots.cu``) and #6
+(``transpose_rows.cu``) of the parent's ``csrc/`` against the current ones at
+the train step's shapes (``SLOT_SHAPES``: 3DGS d 9, w 10 / 2, 2DGS d 16, w 19
+/ 2, at the 262,144 coarse and the 118,752 fine Gaussians), with the one
+PyTorch call that computes the same function, in turns with a cold L2 cache,
+each beside its bound, and prints the launch-weighted device ms per train
+micro-step of each side, and the host time of one call of either side's C
+entry point (the enqueue, no device wait).  ``--slots`` runs only that
+comparison (no scene).
+
 Runs on the card (``--device`` defaults to CUDA and fails without one);
 with ``--device cpu`` it runs the plain versions and times them with the
 host clock, which says nothing of the card.
@@ -52,8 +64,10 @@ import argparse
 import ctypes
 import hashlib
 import json
+import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -228,13 +242,253 @@ def _parent_kernel(csrc: Path, name: str, defines: tuple = ()):
     return fn
 
 
+def _turns(fns: dict, reps: int, before=None) -> dict:
+    """Median device ms of each of ``fns`` (label -> callable), timed in
+    turns: in order, then in reverse; per label the mean of its two runs."""
+    runs = {k: [] for k in fns}
+    for k in [*fns, *reversed(fns)]:
+        runs[k].append(timing.cuda_ms(fns[k], reps, before=before))
+    return {k: dict(ms=sum(v) / len(v), runs_ms=v) for k, v in runs.items()}
+
+
 def _in_turns(parent, current, reps):
     """Median device ms of each, timed parent, current, current, parent."""
-    p1, c1 = timing.cuda_ms(parent, reps), timing.cuda_ms(current, reps)
-    c2, p2 = timing.cuda_ms(current, reps), timing.cuda_ms(parent, reps)
-    return dict(parent_ms=(p1 + p2) / 2, current_ms=(c1 + c2) / 2,
-                parent_runs_ms=[p1, p2], current_runs_ms=[c1, c2],
-                speedup=(p1 + p2) / (c1 + c2))
+    t = _turns({"parent": parent, "current": current}, reps)
+    p, c = t["parent"]["runs_ms"], t["current"]["runs_ms"]
+    return dict(parent_ms=t["parent"]["ms"], current_ms=t["current"]["ms"],
+                parent_runs_ms=p, current_runs_ms=c, speedup=sum(p) / sum(c))
+
+
+# ---------------------------------------------------------------------------
+# kernels #5 (reduce_slots) and #6 (transpose_rows)
+# ---------------------------------------------------------------------------
+
+# the train step's launches of #5 / #6 per micro-step under GD_APOS_MODE
+# gauss / gauss_dsum_col, per renderer: (gaussians, slots per gaussian d at
+# the warmup budgets, width w, launches); the 4 selection backwards (w 2) run
+# on the coarse gaussians, the 16 compositor backwards (3DGS noabs w 10,
+# 2DGS full w 19) on the 8 coarse and the 8 fine renders (the training
+# configuration's fine union: 118,752, as chip_smoke.py's train phases
+# capture it)
+SLOT_SHAPES = {"3dgs": ((262_144, 9, 10, 8), (118_752, 9, 10, 8),
+                        (262_144, 9, 2, 4)),
+               "2dgs": ((262_144, 16, 19, 8), (118_752, 16, 19, 8),
+                        (262_144, 16, 2, 4))}
+
+# inputs on which #5 / #6 must equal their plain versions bit for bit:
+# label -> (n, d, w, offset, special) for #5, rows (n*d, w); label -> (w, M,
+# offset, special) for #6, cols (w, M).  Each is a contiguous view starting
+# ``offset`` floats into its buffer (one row in, or one float in: a base that
+# is not 16 B aligned); ``special`` sprinkles NaN, +inf and -inf.  The
+# ``grid_`` cases cross every templated width (and w 40 for #6) with a
+# full-size and a small ragged shape (n 1,000 at d 4; M 1,001, not a
+# multiple of 4), but for the train step's own shapes.  ``ring_48k`` gives #5 a ring of exactly 48 KB, where the
+# static barriers need the raised limit too; the ``row_groups`` cases give
+# #6 a w too wide for one tile.
+_TRAIN_NDW = {(n, d, w) for shapes in SLOT_SHAPES.values() for n, d, w, _ in shapes}
+REDUCE_CASES = {
+    **{f"train_{r}_n{n}_d{d}_w{w}": (n, d, w, 0, False)
+       for r, shapes in SLOT_SHAPES.items() for n, d, w, _ in shapes},
+    **{f"grid_n{n}_d{d}_w{w}": (n, d, w, 0, False)
+       for n, d in ((262_144, 9), (1_000, 4)) for w in (2, 10, 12, 19)
+       if (n, d, w) not in _TRAIN_NDW},
+    "row_offset_w10": (262_144, 9, 10, 10, False),
+    "row_offset_w19": (118_752, 16, 19, 19, False),
+    "ragged_n": (12_347, 9, 10, 0, False),
+    "d1": (5_003, 1, 10, 0, False),
+    "w7": (12_347, 9, 7, 0, False),
+    "ring_48k": (1_000, 16, 48, 0, False),
+    "nan_inf": (4_099, 9, 10, 0, True),
+}
+TRANSPOSE_CASES = {
+    **{f"train_w{w}_M{n}": (w, n, 0, False)
+       for shapes in SLOT_SHAPES.values() for n, _, w, _ in shapes},
+    **{f"grid_w{w}_M{M}": (w, M, 0, False)
+       for M in (262_144, 1_001) for w in (2, 10, 12, 19, 40)
+       if (M, w) not in {(n, w) for n, _, w in _TRAIN_NDW}},
+    "float_offset": (10, 262_144, 1, False),
+    "row_offset_ragged_M": (19, 1_001, 1_001, False),
+    "ragged_M": (10, 262_145, 0, False),
+    "w7": (7, 12_347, 0, False),
+    "w512_row_groups": (512, 5_000, 0, False),
+    "w600_row_groups_offset": (600, 3_001, 1, False),
+    "nan_inf": (10, 4_100, 0, True),
+}
+
+
+def _slot_tensor(shape, offset: int, special: bool, seed: int, dev):
+    """A seeded contiguous (rows, cols) view ``offset`` floats into its
+    buffer: normal values, 30% of the rows zero (dead slots), and with
+    ``special`` 1% each NaN, +inf and -inf."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    numel = shape[0] * shape[1]
+    buf = torch.randn(offset + numel, generator=g, device=dev)
+    x = buf[offset:].view(shape)
+    x[torch.rand(shape[0], generator=g, device=dev) < 0.3] = 0.0
+    if special:
+        u = torch.rand(shape, generator=g, device=dev)
+        x[u < 0.01] = float("nan")
+        x[(u >= 0.01) & (u < 0.02)] = float("inf")
+        x[(u >= 0.02) & (u < 0.03)] = float("-inf")
+    return x
+
+
+def reduce_case(label: str, dev, seed: int = 0):
+    """``(rows, n, d)`` of ``REDUCE_CASES[label]``."""
+    n, d, w, offset, special = REDUCE_CASES[label]
+    return _slot_tensor((n * d, w), offset, special, seed, dev), n, d
+
+
+def transpose_case(label: str, dev, seed: int = 0):
+    """``cols`` of ``TRANSPOSE_CASES[label]``."""
+    w, M, offset, special = TRANSPOSE_CASES[label]
+    return _slot_tensor((w, M), offset, special, seed, dev)
+
+
+def same_bits(a, b) -> bool:
+    """NaN at the same places and every other element bit for bit (the sign
+    of a zero included)."""
+    nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+    if a.shape != b.shape or not torch.equal(nan_a, nan_b):
+        return False
+    return torch.equal(a.masked_fill(nan_a, 0).view(torch.int32),
+                       b.masked_fill(nan_b, 0).view(torch.int32))
+
+
+def slot_edge_cases(dev) -> dict:
+    """Every case of ``REDUCE_CASES`` and ``TRANSPOSE_CASES`` through the
+    wrapper (one launch each) against the plain version; the records, each
+    with ``same_bits``."""
+    recs = {}
+    for label in REDUCE_CASES:
+        rows, n, d = reduce_case(label, dev)
+        out, ref = kernels.reduce_slots(rows, n, d), kernels.reduce_slots_plain(rows, n, d)
+        recs[f"reduce_slots:{label}"] = dict(shape=[n, d, rows.shape[1]],
+                                             aligned=rows.data_ptr() % 16 == 0,
+                                             same_bits=same_bits(out, ref))
+    for label in TRANSPOSE_CASES:
+        cols = transpose_case(label, dev)
+        out, ref = kernels.transpose_rows(cols), kernels.transpose_rows_plain(cols)
+        recs[f"transpose_rows:{label}"] = dict(shape=list(cols.shape),
+                                               aligned=cols.data_ptr() % 16 == 0,
+                                               same_bits=same_bits(out, ref))
+    return recs
+
+
+def _raw_slot_kernel(fn, name: str):
+    """A call of a ``gd_reduce_slots`` / ``gd_transpose_rows`` built
+    elsewhere (``_parent_kernel``) with the current wrapper's output."""
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+
+    def check(err):
+        if err:
+            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+    def reduce(rows, n, d):
+        out = torch.empty((n, rows.shape[1]), device=rows.device)
+        check(fn(rows.data_ptr(), out.data_ptr(), n, d, rows.shape[1], stream()))
+        return out
+
+    def transpose(cols):
+        out = torch.empty((cols.shape[1], cols.shape[0]), device=cols.device)
+        check(fn(cols.data_ptr(), out.data_ptr(), cols.shape[0], cols.shape[1],
+                 stream()))
+        return out
+
+    return reduce if name == "reduce_slots" else transpose
+
+
+def _host_us(fns: dict, calls: int = 200, rounds: int = 5) -> dict:
+    """Host microseconds per call of each of ``fns`` (label -> callable
+    that enqueues device work): ``calls`` calls back to back without
+    waiting for the card, in turns like ``_turns``, ``rounds`` times; per
+    label the median of its runs."""
+    runs = {k: [] for k in fns}
+    for _ in range(rounds):
+        for k in [*fns, *reversed(fns)]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fns[k]()
+            runs[k].append((time.perf_counter() - t0) * 1e6 / calls)
+    torch.cuda.synchronize()
+    return {k: statistics.median(v) for k, v in runs.items()}
+
+
+def slot_kernels_versus(csrc: Path | None, dev, reps: int = REPS) -> dict:
+    """Kernels #5 and #6 at the train step's shapes (``SLOT_SHAPES``): the
+    current kernels, the parent's (``csrc``, built with ``_parent_kernel``)
+    and the one PyTorch call that computes the same function
+    (``view(n, d, w).sum(1)``, ``t().contiguous()``), each held bit for bit
+    against the plain version (the library call only timed), timed in turns
+    with a cold L2 (``timing.cold_l2``), beside the bound and two
+    yardsticks of what no kernel can beat under this protocol: ``floor``, a
+    one-float ``fill_`` (launch and timing overhead), and for #6 ``copy``, a
+    contiguous device copy of the same bytes; the host time of one call of
+    each side's C entry point (``_host_us``: the ctypes call alone, into a
+    preallocated output); then per renderer the launch-weighted device ms per micro-step
+    of each side."""
+    before = timing.cold_l2(dev)
+    libs = kernels.build(kernels.MAIN_KERNELS)
+    entry = {}   # name -> side -> the C entry point
+    for name in ("reduce_slots", "transpose_rows"):
+        entry[name] = {"current": getattr(libs[name].lib, f"gd_{name}")}
+        if csrc is not None:
+            entry[name]["parent"] = _parent_kernel(csrc, name)
+    stream = torch.cuda.current_stream().cuda_stream
+    recs, per_step = {}, {}
+    for renderer, shapes in SLOT_SHAPES.items():
+        for n, d, w, count in shapes:
+            rows = _slot_tensor((n * d, w), 0, False, 0, dev)
+            cols = _slot_tensor((w, n), 0, False, 1, dev)
+            copy_dst, one = torch.empty_like(cols), torch.empty(1, device=dev)
+            host_out = torch.empty(n * w, device=dev)
+            for name, args, c_args, plain, library, n_bytes, ops in (
+                    ("reduce_slots", (rows, n, d),
+                     (rows.data_ptr(), host_out.data_ptr(), n, d, w, stream),
+                     kernels.reduce_slots_plain, lambda: rows.view(n, d, w).sum(1),
+                     (n * d * w + n * w) * 4, n * (d - 1) * w),
+                    ("transpose_rows", (cols,),
+                     (cols.data_ptr(), host_out.data_ptr(), w, n, stream),
+                     kernels.transpose_rows_plain, lambda: cols.t().contiguous(),
+                     2 * w * n * 4, 0)):
+                ref = plain(*args)
+                fns = {"current": lambda a=args, f=getattr(kernels, name): f(*a)}
+                fns.update({k: lambda a=args, f=_raw_slot_kernel(f, name): f(*a)
+                            for k, f in entry[name].items() if k != "current"})
+                for k, fn in fns.items():
+                    out = fn()
+                    torch.cuda.synchronize()
+                    if not same_bits(out, ref):
+                        raise SystemExit(f"{name} ({k}) at n={n} d={d} w={w} differs "
+                                         "from its plain version")
+                host = _host_us({k: lambda f=f: f(*c_args)
+                                 for k, f in entry[name].items()})
+                fns["library"] = library
+                fns["floor"] = lambda: one.fill_(0.0)
+                if name == "transpose_rows":
+                    fns["copy"] = lambda: copy_dst.copy_(cols)
+                t = _turns(fns, reps, before)
+                rec = dict(kernel=name, renderer=renderer, n=n, d=d, w=w,
+                           launches_per_micro_step=count,
+                           **{f"{k}_ms": v["ms"] for k, v in t.items()},
+                           **{f"{k}_runs_ms": v["runs_ms"] for k, v in t.items()},
+                           **{f"{k}_host_us": v for k, v in host.items()},
+                           **timing.bound(n_bytes, ops))
+                recs[f"{name}_{renderer}_n{n}_w{w}"] = rec
+                step = per_step.setdefault(f"{name}_{renderer}", {})
+                for k, v in t.items():
+                    step[k] = step.get(k, 0.0) + count * v["ms"]
+                step["bound"] = step.get("bound", 0.0) + count * rec["bound_ms"]
+                print(f"{name:15s} {renderer} n {n:7d} d {d:2d} w {w:2d}  " + "  ".join(
+                    f"{k} {v['ms']:.4f}" for k, v in t.items())
+                    + f"  bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})  host "
+                    + "  ".join(f"{k} {v:.2f}" for k, v in host.items()) + " us",
+                    flush=True)
+    for key, step in per_step.items():
+        print(f"{key:22s} per micro-step (launch-weighted ms): " + "  ".join(
+            f"{k} {v:.4f}" for k, v in step.items()), flush=True)
+    return dict(shapes=recs, per_micro_step=per_step)
 
 
 def versus_parent(args, csrc: Path, reps: int = REPS) -> dict:
@@ -441,11 +695,20 @@ def run(argv=None) -> dict:
     ap.add_argument("--e2e", action="store_true",
                     help="with --parent: also the serving forward and a 3DGS "
                          "train micro-step on either side's kernels")
+    ap.add_argument("--slots", action="store_true",
+                    help="only kernels #5 / #6 at the train step's shapes")
     a = ap.parse_args(argv)
     bad = [s for s in a.stages if s not in pk.COMPOSITE_VARIANTS]
     if bad:
         ap.error(f"unknown stages {bad}; choose from {pk.COMPOSITE_VARIANTS}")
     dev = resolve_device(a.device)
+    if a.slots or a.parent is not None:
+        if dev.type != "cuda":
+            ap.error("--slots / --parent time CUDA kernels: they need the card")
+    if a.slots:
+        card = timing.card()
+        print(card)
+        return dict(card=card, slots=slot_kernels_versus(a.parent, dev, a.reps))
     with torch.inference_mode():
         budgets = (a.max_tiles, a.max_per_tile, a.enum_tiles)
         if a.scene == "A":
@@ -464,9 +727,8 @@ def run(argv=None) -> dict:
                    tile_size=args[6], budgets=budgets, live_pairs=int(args[3].sum()),
                    overflow=overflow)
         if a.parent is not None:
-            if dev.type != "cuda":
-                ap.error("--parent times CUDA kernels: it needs the card")
             res["versus_parent"] = versus_parent(args, a.parent, a.reps)
+            res["slots"] = slot_kernels_versus(a.parent, dev, a.reps)
             if a.e2e:
                 with torch.inference_mode(False):   # the train step needs autograd
                     res["e2e_versus_parent"] = e2e_versus_parent(a.parent, dev)

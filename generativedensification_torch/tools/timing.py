@@ -76,6 +76,23 @@ def cuda_ms(fn, reps: int, warmup: int = 2, before=None) -> float:
     return statistics.median(times)
 
 
+def cold_l2(dev, spin_cycles: int = 1_000_000):
+    """A ``before`` for ``cuda_ms``: reads a 256 MB buffer, so that the timed
+    call finds the 50 MB L2 cache cold, then keeps the card busy for
+    ``spin_cycles`` clock cycles (~0.5 ms by default) while the host
+    enqueues the call, so that the interval holds the device's work and not
+    the caller's host time."""
+    import torch
+
+    scratch = torch.zeros(64 * 2**20, dtype=torch.float32, device=dev)
+
+    def before():
+        scratch.sum()
+        torch.cuda._sleep(spin_cycles)
+
+    return before
+
+
 def once(fn, on_card: bool):
     """``fn()`` and its device time in ms by CUDA events (None off the
     card)."""

@@ -29,7 +29,7 @@ from generativedensification_torch.splat.composite import (
 )
 from generativedensification_torch.splat.projection import project_gaussians
 from generativedensification_torch.splat import surfel, surfel_kernels
-from generativedensification_torch.tools import scenes
+from generativedensification_torch.tools import kernel_break, scenes
 
 torch.set_num_threads(1)
 
@@ -466,29 +466,39 @@ def test_reduce_and_transpose_plain_versions():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("w", [2, 10, 12, 19])
-def test_cuda_reduce_slots_matches_plain(cuda_device, w):
-    """The CUDA segmented sum bitwise equal to its plain version at the
-    widths the backwards write (3DGS 12 / 10 / 2, surfels 19 / 2), at a
-    scene-B size and at a ragged small one."""
-    for n, d in ((262_144, 9), (1000, 4)):
-        rows = _slot_rows(n, d, w, seed=w, dev=cuda_device)
-        before = kernels.launch_counts["reduce_slots"]
-        out = kernels.reduce_slots(rows, n, d)
-        torch.cuda.synchronize()
-        assert kernels.launch_counts["reduce_slots"] == before + 1
-        assert torch.equal(out, kernels.reduce_slots_plain(rows, n, d))
+@pytest.mark.parametrize("case", list(kernel_break.REDUCE_CASES))
+def test_cuda_reduce_slots_matches_plain(cuda_device, case):
+    """The CUDA segmented sum bit for bit equal to its plain version: at the
+    train step's shapes (3DGS d 9, w 10 / 2; surfels d 16, w 19 / 2;
+    262,144 and 118,752 gaussians), at every templated width (2, 10, 12,
+    19) at 262,144 gaussians with d 9 and at a ragged 1,000 with d 4, on a
+    view that starts one row in (base not 16 B aligned), n not a multiple
+    of the run, d = 1, w = 7 (outside the templated widths), a ring of
+    exactly 48 KB, and rows holding NaN and +-inf."""
+    rows, n, d = kernel_break.reduce_case(case, cuda_device)
+    if "offset" in case:
+        assert rows.data_ptr() % 16
+    before = kernels.launch_counts["reduce_slots"]
+    out = kernels.reduce_slots(rows, n, d)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["reduce_slots"] == before + 1
+    assert kernel_break.same_bits(out, kernels.reduce_slots_plain(rows, n, d))
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("w", [2, 10, 12, 19, 40])
-def test_cuda_transpose_rows_matches_plain(cuda_device, w):
-    """The CUDA transpose bitwise equal to its plain version, (w, M) with M
-    a multiple of the tile and not, and w above one tile's 32 rows."""
-    for M in (262_144, 1001):
-        cols = _slot_rows(1, w, M, seed=w, dev=cuda_device)
-        before = kernels.launch_counts["transpose_rows"]
-        out = kernels.transpose_rows(cols)
-        torch.cuda.synchronize()
-        assert kernels.launch_counts["transpose_rows"] == before + 1
-        assert torch.equal(out, kernels.transpose_rows_plain(cols))
+@pytest.mark.parametrize("case", list(kernel_break.TRANSPOSE_CASES))
+def test_cuda_transpose_rows_matches_plain(cuda_device, case):
+    """The CUDA transpose bit for bit equal to its plain version: at the
+    train step's shapes, at w 2, 10, 12, 19 and 40 with M 262,144 and 1,001
+    (not a multiple of 4), on views that start one float or one row in
+    (base not 16 B aligned), M neither a multiple of 4 nor of the CTA's
+    columns, w = 7 (outside the templated widths), w 512 and 600 (too wide
+    for one tile: groups of rows), and NaN and +-inf."""
+    cols = kernel_break.transpose_case(case, cuda_device)
+    if "offset" in case:
+        assert cols.data_ptr() % 16
+    before = kernels.launch_counts["transpose_rows"]
+    out = kernels.transpose_rows(cols)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["transpose_rows"] == before + 1
+    assert kernel_break.same_bits(out, kernels.transpose_rows_plain(cols))
