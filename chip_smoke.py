@@ -89,8 +89,30 @@ Drives ``generativedensification_torch`` only (no JAX):
    computes the same function; ``slots_to_gaussians`` timed under the three
    strategies on the ``gauss_dsum`` step's inputs (device ms per
    micro-step);
+8b. the bf16 compute policy (``tpu.compute_dtype=bfloat16``, the config
+   default) beside f32 on the same seeded weights and batch: the 3DGS
+   serving forward and the 3DGS train micro-step (B=1, warmup budgets),
+   each timed in turns (f32, bf16, bf16, f32, f32, bf16, bf16, f32) after 2
+   warm-ups per dtype, every run with the launch counts set to 0 just
+   before and read just after (unchanged by the dtype: 16 + 4 serving, 16
+   + 20 train), a stage breakdown per dtype, the fine image's PSNR bf16
+   against f32 (at least ``BF16_PSNR_FLOOR``), each dtype's peak memory
+   with its own network or trainer the only one on the card; then one
+   2DGS bf16 micro-step (finite, 16 surfel-forward + 20 surfel-backward
+   launches);
+8c. the train CLI phase: ``train.train.main`` at ``load_config()``'s
+   defaults (bf16, 3DGS, B=3, accumulation 2, the warmup budgets) on
+   ``synthetic`` 512² data, 21 micro-steps and one validation batch, the
+   checkpoint into a temporary directory, and a second ``main`` with
+   ``model.ckpt_path`` that restores micro-step 21 and the parameters,
+   moments and accumulators bit for bit; exactly 48 forward and 12
+   ``selonly`` + 48 ``noabs`` backward compositor launches per micro-step
+   (16 + 4 + 16 per sample), no probe; the CLI's loader-attached samples/s,
+   the median micro-step interval, peak memory, checkpoint size and the
+   save and restore seconds (``cli_phase``);
 9. evaluation phase: ``eval.evaluation.main`` on 2 ``synthetic`` scenes at
-   512² with seeded weights, with each renderer;
+   512² with seeded weights, with each renderer (3DGS at the config's
+   bf16, 2DGS in f32);
 10. the tiny configuration with the fine stage on the card and on the CPU
    from the same seeded weights, with each renderer: Gaussians, selection
    scores and selected index sets agree, images agree but for isolated
@@ -122,11 +144,11 @@ GRAD_ATOL = 5e-5              # per array, after scaling by its max |value|
 # (on an NVIDIA H100 80GB HBM3 at 700 W, card vs CPU: 0.09% of depth pixels,
 # 0.61% of depth-normal pixels)
 SURFEL_KNIFE_EDGE_SHARE = 1e-2
+# the bf16 serving forward's fine image against the f32 one on the same
+# weights and batch (32.25 dB on an NVIDIA H100 80GB HBM3 at 700 W); a bf16
+# path that rounds where it must not, or computes garbage, falls far below
+BF16_PSNR_FLOOR = 28.0
 V_TOTAL, N_VIEWS, HW = 8, 4, 512
-# the warmup budgets (max_tiles, enum_tiles, max_per_tile) that
-# generativedensification_tpu/train/train.py applies for the first
-# overflow_warmup_steps micro-steps, per renderer
-WARMUP_BUDGETS = {"3dgs": (9, 16, 8192), "2dgs": (16, 25, 16384)}
 # gradients of the GD_APOS_MODE strategies against gauss_dsum, scaled by
 # each parameter's max |value|; the analytically zero ones (the ViT key
 # bias) must stay below this share of the step's largest gradient instead
@@ -560,20 +582,28 @@ def timed_forwards(net, batch, with_fine: bool, expect: dict, n: int = 5):
     return out, times, launches, torch.cuda.max_memory_allocated()
 
 
-def train_config(renderer: str):
+def train_config(renderer: str, dtype: str = "float32"):
     """The training configuration (``load_config()``: ``mask_pool`` 49,152,
     k 12,000, drop-path 0.3, order shuffling, ``start_fine`` -1,
-    ``accumulate_grad_batches`` 2) in f32, with the renderer's warmup
-    budgets of ``train/train.py`` (pair budget off)."""
+    ``accumulate_grad_batches`` 2) in ``dtype`` (f32 unless asked), with
+    the renderer's warmup budgets of ``train/train.py`` (pair budget off)."""
     from generativedensification_torch.config import load_config
 
+    from generativedensification_torch.train.train import warmup_budgets
+
     cfg = load_config()
-    max_tiles, enum_tiles, max_per_tile = WARMUP_BUDGETS[renderer]
-    for k, v in (("tpu.compute_dtype", "float32"), ("tpu.renderer", renderer),
-                 ("tpu.max_tiles", max_tiles), ("tpu.enum_tiles", enum_tiles),
-                 ("tpu.max_per_tile", max_per_tile), ("tpu.pair_budget", 0.0)):
-        cfg.set_dotted(k, v)
+    cfg.set_dotted("tpu.compute_dtype", dtype)
+    cfg.set_dotted("tpu.renderer", renderer)
+    for k, v in warmup_budgets(cfg).items():
+        cfg.set_dotted(f"tpu.{k}", v)
     return cfg
+
+
+def budgets_of(renderer: str) -> tuple:
+    """(max_tiles, enum_tiles, max_per_tile) of ``renderer``'s warmup
+    budgets, as the train CLI sets them (``train_config``)."""
+    tpu = train_config(renderer).tpu
+    return tpu.max_tiles, tpu.enum_tiles, tpu.max_per_tile
 
 
 def make_trainer(ncfg, tcfg, step0: int, device=None, seed: int = 0):
@@ -980,7 +1010,7 @@ def train_phase(renderer: str, batch, expect: dict, device=None) -> dict:
                overflow=stats["overflow"], optimizer_updates=opt.count,
                micro_steps=state.step - step0, breakdown_ms=split,
                busy_ms=busy["busy_ms"], busy_wall_ms=busy["wall_ms"],
-               busy_top=busy["top"], budgets=WARMUP_BUDGETS[renderer],
+               busy_top=busy["top"], budgets=budgets_of(renderer),
                mask_pool=ncfg.mask_pool, k_num=ncfg.k_num,
                drop_path=ncfg.drop_path, shuffle_orders=ncfg.shuffle_orders)
     print(f"[train {renderer}] micro-step ms median {step_ms:.2f} (runs "
@@ -1106,6 +1136,369 @@ def tiny_card_vs_cpu(renderer: str = "3dgs", seed: int = 35):
                 fine_end_to_end_shares=end_to_end)
 
 
+def _in_turns(runs: dict, rounds: int) -> dict:
+    """Call each of ``runs`` (name -> fn returning ms) ``2 * rounds`` times
+    in turns (a, b, b, a, ...); returns name -> list of ms."""
+    names = list(runs)
+    times = {n: [] for n in names}
+    for r in range(rounds):
+        order = names if r % 2 == 0 else names[::-1]
+        for n in order + order[::-1]:
+            times[n].append(runs[n]())
+    return times
+
+
+def peak_alone(build, run, runs: int = 1, warm: int = 2) -> dict:
+    """Peak allocated bytes of ``runs`` calls of ``run(obj)`` with
+    ``build()``'s network (or trainer) the only model on the card: built
+    after every other one was freed, ``warm`` warm-up calls, then the
+    counted ones; freed again after.  ``base_bytes`` is what was allocated
+    before the build (the batch and whatever the caller holds)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    obj = build()
+    for _ in range(warm):
+        run(obj)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(runs):
+        run(obj)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del obj
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - base
+    if left > 2**26:
+        fail(f"peak_alone: {left} bytes of the measured model were not freed")
+    return dict(peak_bytes=peak, base_bytes=base)
+
+
+def bf16_phase(batch, expect_serving: dict, expect_train: dict,
+               expect_train_2dgs: dict) -> dict:
+    """The bf16 compute policy beside f32 on the same weights and batch:
+    the 3DGS serving forward (infer configuration) and the 3DGS train
+    micro-step at B=1 (training configuration, warmup budgets), each timed
+    in turns (f32, bf16, bf16, f32, ...) with the launch counts held per
+    run, and a stage breakdown of each dtype; the bf16 fine image must lie
+    at least ``BF16_PSNR_FLOOR`` dB from the f32 one.  Then the peak memory
+    of each dtype with its own network (or trainer) the only one on the
+    card (``peak_alone``), and one 2DGS bf16 micro-step (finite, its launch
+    counts)."""
+    import torch
+
+    from generativedensification_torch.models.network import Network, NetworkConfig
+    from generativedensification_torch.splat import kernels
+    from generativedensification_torch.tools import scenes
+    from generativedensification_torch.train.loss import Losses
+    from generativedensification_torch.train.step import make_train_step
+
+    dtypes = ("float32", "bfloat16")
+    rec = {"serving": {}, "train": {}}
+
+    def counted(fn, expect, tag):
+        def run():
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            if dict(kernels.launch_counts) != expect:
+                fail(f"{tag}: expected launches {expect}, got "
+                     f"{dict(kernels.launch_counts)}")
+            last[tag] = res
+            return ms
+        return run
+
+    last = {}
+    # -- serving forward
+    def serving_net(dt):
+        return Network(NetworkConfig.from_config(scenes.fine_config(
+            **{"tpu.compute_dtype": dt})), seed=0)
+
+    nets = {dt: serving_net(dt) for dt in dtypes}
+    n_coarse = (2 * nets["float32"].cfg.vol_embedding_reso) ** 3
+    n_fine = (sum(lv["leaf"] for lv in nets["float32"].cfg.level_sizes())
+              + min(nets["float32"].cfg.mask_pool, n_coarse) - nets["float32"].cfg.k_num)
+    with torch.inference_mode():
+        runs = {dt: counted(lambda n=net: n(batch, with_fine=True), expect_serving,
+                            f"serving {dt}") for dt, net in nets.items()}
+        for run in runs.values():
+            run(), run()                                   # warm-ups
+        times = _in_turns(runs, 2)
+        for dt, net in nets.items():
+            out = last[f"serving {dt}"]
+            check_outputs(out, 1, V_TOTAL, HW, HW, n_coarse, n_fine)
+            rec["serving"][dt] = dict(
+                forward_ms=statistics.median(times[dt]), runs_ms=times[dt],
+                overflow=int(out["overflow"].sum()),
+                breakdown_ms=forward_breakdown(net, batch, True))
+        img = {dt: last[f"serving {dt}"]["image_fine"].float() for dt in dtypes}
+        mse = float(((img["bfloat16"] - img["float32"]) ** 2).mean())
+        psnr = -10 * np.log10(max(mse, 1e-20))
+        rec["serving"]["fine_image_psnr_bf16_vs_f32"] = psnr
+        if not psnr >= BF16_PSNR_FLOOR:
+            fail(f"bf16 serving: the fine image lies {psnr:.2f} dB from f32's "
+                 f"(floor {BF16_PSNR_FLOOR} dB)")
+    del nets, runs, run, img, net, out
+    last.clear()
+    with torch.inference_mode():
+        for dt in dtypes:
+            rec["serving"][dt].update(peak_alone(
+                lambda dt=dt: serving_net(dt), lambda n: n(batch, with_fine=True)))
+
+    # -- train micro-step (3DGS, B=1)
+    def trainer(dt):
+        cfg = train_config("3dgs", dt)
+        net, opt, state = make_trainer(NetworkConfig.from_config(cfg), cfg.train, 0)
+        return [net, opt, state, make_train_step(net, opt, Losses(), with_fine=True)]
+
+    def advance(t):
+        t[2], stats = t[3](t[2], batch)
+        return stats
+
+    trainers = {dt: trainer(dt) for dt in dtypes}
+
+    def step_of(dt):
+        return lambda: advance(trainers[dt])
+
+    runs = {dt: counted(step_of(dt), expect_train, f"train {dt}") for dt in dtypes}
+    for run in runs.values():
+        run(), run()                                       # warm-ups
+    times = _in_turns(runs, 2)
+    for dt in dtypes:
+        stats = {k: float(v) for k, v in last[f"train {dt}"].items()}
+        check_step_stats(last[f"train {dt}"], f"train {dt}")
+        net, opt, state = trainers[dt][:3]
+        state, split = train_breakdown(net, opt, state, batch)
+        trainers[dt][2] = state
+        rec["train"][dt] = dict(step_ms=statistics.median(times[dt]),
+                                runs_ms=times[dt], stats=stats, breakdown_ms=split)
+    del trainers, runs, run, last, net, opt, state
+    for dt in dtypes:
+        # one accumulating and one updating micro-step (accumulation 2)
+        rec["train"][dt].update(peak_alone(lambda dt=dt: trainer(dt), advance,
+                                           runs=2))
+
+    # -- one 2DGS bf16 micro-step, past micro-step 1000 (its terms on)
+    cfg = train_config("2dgs", "bfloat16")
+    net, opt, state = make_trainer(NetworkConfig.from_config(cfg), cfg.train, 1001)
+    step_fn = make_train_step(net, opt, Losses(), with_fine=True)
+    kernels.reset_launch_counts()
+    state, stats = step_fn(state, batch)
+    torch.cuda.synchronize()
+    if dict(kernels.launch_counts) != expect_train_2dgs:
+        fail(f"2dgs bf16 micro-step: expected launches {expect_train_2dgs}, got "
+             f"{dict(kernels.launch_counts)}")
+    check_step_stats(stats, "2dgs bf16 micro-step")
+    rec["train_2dgs_bf16"] = dict(stats={k: float(v) for k, v in stats.items()},
+                                  launches=dict(kernels.launch_counts))
+    del net, opt, state, step_fn
+    torch.cuda.empty_cache()
+
+    for part in ("serving", "train"):
+        for dt in dtypes:
+            r = dict(rec[part][dt])
+            split = r.pop("breakdown_ms")
+            print(f"[bf16] {part} {dt}: {json.dumps(r)}")
+            print(f"[breakdown] {part} {dt}, device ms by stage: {json.dumps(split)}")
+    print(f"[bf16] serving fine image PSNR bf16 vs f32 "
+          f"{rec['serving']['fine_image_psnr_bf16_vs_f32']:.2f} dB; 2dgs bf16 "
+          f"micro-step {json.dumps(rec['train_2dgs_bf16'])}")
+    return rec
+
+
+# the validation share of the 64 synthetic scenes that gives exactly one
+# batch of 3 (int(64 * 0.05) = 3; the default 0.02 gives none)
+CLI_VAL_FRACTION = 0.05
+
+
+def cli_phase() -> dict:
+    """The train CLI at its config defaults: ``train.train.main`` on the
+    card with ``load_config()`` (bf16, 3DGS, B=3, accumulation 2, the
+    warmup budgets for the first 2,000 micro-steps) on ``synthetic`` 512²
+    data, one epoch of 21 micro-steps (``limit_train_batches`` 1.0), one
+    validation batch and the checkpoint at its end into a temporary
+    directory; then a second ``main`` with ``model.ckpt_path`` and no epoch,
+    which must restore micro-step 21 and the parameters, moments and
+    accumulators bit for bit.  The first ``main``'s datasets render their
+    ground truth when built (set-up, not timed with the loop; kernel #1 at
+    16 px tiles, counted apart), so that every launch inside the loop is
+    the train step's: each micro-step must launch exactly 16 forward and 4
+    ``selonly`` + 16 ``noabs`` backward compositors per sample, and the run
+    as a whole (counts set to 0 just before ``main``, read just after) those
+    plus the validation's and the set-up's.  Reports the
+    loader-attached samples/s of the CLI's own 20-step window, the median
+    interval between micro-step starts (host clock, no synchronize, so the
+    CLI's own pipelining is kept), peak memory, and the save and restore
+    seconds; the temporary directory is deleted."""
+    import pathlib
+    import shutil
+    import tempfile
+
+    import torch
+
+    from generativedensification_torch.config import load_config
+    from generativedensification_torch.splat import kernels
+    from generativedensification_torch.train import train as train_mod
+    from generativedensification_torch.train.state import latest_step
+
+    tmp = tempfile.mkdtemp(prefix="gd_cli_")
+    over = ["train_dataset.dataset_name=synthetic", "test_dataset.dataset_name=synthetic",
+            "train.n_epoch=1", "train.limit_train_batches=1.0",
+            f"train.limit_val_batches={CLI_VAL_FRACTION}", f"logger.dir={tmp}",
+            "exp_name=smoke"]
+    cfg = load_config(overrides=over)
+    B = int(cfg.train.batch_size)
+    marks = {"build_s": 0.0, "lens": [], "starts": [], "deltas": [], "save_s": [],
+             "restore_s": [], "build_launches": dict.fromkeys(kernels.launch_counts, 0)}
+    logs = []
+    real = {k: getattr(train_mod, k) for k in ("build_dataset", "make_train_step",
+                                               "save_checkpoint", "restore_checkpoint",
+                                               "ScalarLog")}
+
+    def build(ds_cfg, device=None):
+        ds = real["build_dataset"](ds_cfg, device=device)
+        if len(marks["lens"]) < 2:           # the first main's two datasets
+            before = dict(kernels.launch_counts)
+            t0 = time.perf_counter()
+            for i in range(len(ds)):
+                ds[i]                        # render and cache the ground truth
+            torch.cuda.synchronize()
+            marks["build_s"] += time.perf_counter() - t0
+            marks["lens"].append(len(ds))
+            for n, c in kernels.launch_counts.items():
+                marks["build_launches"][n] += c - before[n]
+        return ds
+
+    def make_step(*a, **k):
+        fn = real["make_train_step"](*a, **k)
+
+        def run(state, b):
+            before = dict(kernels.launch_counts)
+            marks["starts"].append(time.perf_counter())
+            out = fn(state, b)
+            marks["deltas"].append({n: kernels.launch_counts[n] - before[n]
+                                    for n in before})
+            return out
+        return run
+
+    def timed(key, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            marks[key].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    def capture(cfg, rank=0):
+        logs.append(real["ScalarLog"](cfg, rank))
+        return logs[-1]
+
+    train_mod.build_dataset = build
+    train_mod.make_train_step = make_step
+    train_mod.save_checkpoint = timed("save_s", real["save_checkpoint"])
+    train_mod.restore_checkpoint = timed("restore_s", real["restore_checkpoint"])
+    train_mod.ScalarLog = capture
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        state = train_mod.main(cfg)
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        launches = dict(kernels.launch_counts)
+        peak = torch.cuda.max_memory_allocated()
+        ckpt = f"{tmp}/smoke/ckpts"
+        step_saved = latest_step(ckpt)
+        size = sum(f.stat().st_size for f in pathlib.Path(ckpt).rglob("*")
+                   if f.is_file())
+        resumed = train_mod.main(load_config(overrides=over + [
+            f"model.ckpt_path={ckpt}", "train.n_epoch=0"]))
+    finally:
+        for k, v in real.items():
+            setattr(train_mod, k, v)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    n_steps = len(marks["deltas"])
+    n_train, n_val = marks["lens"][:2]
+    per_step = expect_launches(kernels, composite_fwd=2 * V_TOTAL * B,
+                               composite_bwd=(2 * V_TOTAL + N_VIEWS) * B)
+    bad = [i for i, d in enumerate(marks["deltas"]) if d != per_step]
+    if n_steps != n_train // B or int(n_val * CLI_VAL_FRACTION) // B != 1 or bad:
+        fail(f"train CLI: {n_steps} micro-steps (expected {n_train // B}), "
+             f"{int(n_val * CLI_VAL_FRACTION) // B} validation batches (expected 1); steps with "
+             f"other launches than {per_step}: {bad[:3]} "
+             f"{[marks['deltas'][i] for i in bad[:3]]}")
+    val = expect_launches(kernels, composite_fwd=2 * V_TOTAL * B,
+                          composite_bwd=N_VIEWS * B)
+    # the ground-truth renders of the datasets' set-up, then the loop's
+    want = {n: marks["build_launches"][n] + n_steps * per_step[n] + val[n]
+            for n in per_step}
+    if launches != want:
+        fail(f"train CLI: launches {launches} over the run, expected {want}")
+    if state.step != n_steps or step_saved != n_steps:
+        fail(f"train CLI: state at step {state.step}, checkpoint at {step_saved}, "
+             f"expected {n_steps}")
+    if resumed.step != n_steps:
+        fail(f"train CLI resume: step {resumed.step}, expected {n_steps}")
+    same = all(torch.equal(a, b) for a, b in zip(state.net.parameters(),
+                                                 resumed.net.parameters()))
+    opt_a, opt_b = state.optimizer.state, resumed.optimizer.state
+    same_opt = all(torch.equal(opt_a[p][k], opt_b[q][k])
+                   for p, q in zip(state.net.parameters(), resumed.net.parameters())
+                   for k in ("mu", "nu", "acc"))
+    same_opt = same_opt and (state.optimizer.count, state.optimizer.mini_step) == (
+        resumed.optimizer.count, resumed.optimizer.mini_step)
+    if not (same and same_opt):
+        fail(f"train CLI resume: parameters bitwise {same}, optimizer bitwise {same_opt}")
+    history = logs[0].history
+    train_logs = [s for p, _, s in history if p == "train"]
+    val_logs = [s for p, _, s in history if p == "val"]
+    if len(train_logs) != 1 or len(val_logs) != 1:
+        fail(f"train CLI: {len(train_logs)} train and {len(val_logs)} val logs, "
+             "expected one each")
+    for s in train_logs + val_logs:
+        if not all(np.isfinite(v) for v in s.values()):
+            fail(f"train CLI: non-finite scalars {s}")
+    intervals = np.diff(marks["starts"]) * 1e3
+    rec = dict(batch_size=B, micro_steps=n_steps, updates=state.optimizer.count,
+               compute_dtype=cfg.tpu.compute_dtype,
+               samples_per_s=train_logs[0]["samples_per_s"],
+               micro_step_ms_median=float(np.median(intervals)),
+               micro_step_ms=[round(float(t), 2) for t in intervals],
+               loss=train_logs[0]["loss"], overflow=train_logs[0]["overflow"],
+               lr=train_logs[0]["lr"], val=val_logs[0], launches_per_step=per_step,
+               launches=launches, dataset_launches=marks["build_launches"],
+               peak_bytes=peak, main_s=main_s,
+               dataset_build_s=marks["build_s"], save_s=marks["save_s"][0],
+               restore_s=marks["restore_s"][0], checkpoint_bytes=size,
+               resume_bitwise=True)
+    print(f"[cli] {n_steps} micro-steps at B={B} ({cfg.tpu.compute_dtype}) in "
+          f"{main_s:.1f}s; loader-attached {rec['samples_per_s']:.3f} samples/s "
+          f"(steps 1-20); micro-step median {rec['micro_step_ms_median']:.1f} ms; "
+          f"peak allocated {peak / 2**30:.2f} GiB; checkpoint "
+          f"{size / 2**30:.2f} GiB saved in {rec['save_s']:.2f}s, restored in "
+          f"{rec['restore_s']:.2f}s; loss {rec['loss']:.4f} overflow "
+          f"{rec['overflow']:.0f}; datasets built in {marks['build_s']:.1f}s")
+    del state, resumed
+    torch.cuda.empty_cache()
+    return rec
+
+
+def expect_launches(kernels, **launches):
+    """Launches per call: the given kernels, every other one 0."""
+    return {**dict.fromkeys(kernels.launch_counts, 0), **launches}
+
+
 def probe_phase() -> dict:
     """The stage probes of kernels #1 and #3 (TPU kernels #7-#10) through
     their breakdown entry points, with the launch counts set to 0 just
@@ -1163,7 +1556,7 @@ def main() -> int:
 
     def expect(**launches):
         """Launches per forward: the given kernels, every other one 0."""
-        return {**dict.fromkeys(kernels.launch_counts, 0), **launches}
+        return expect_launches(kernels, **launches)
 
     # -- 1. the card
     card = timing.card()
@@ -1176,7 +1569,8 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} triton {triton} "
           f"python {sys.version.split()[0]}; tf32 matmul "
           f"{torch.backends.cuda.matmul.allow_tf32} cudnn "
-          f"{torch.backends.cudnn.allow_tf32}")
+          f"{torch.backends.cudnn.allow_tf32}; bf16 reduced-precision reduction "
+          f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
 
     # -- 2. build every kernel (one nvcc per source, started together)
     t0 = time.perf_counter()
@@ -1246,7 +1640,7 @@ def main() -> int:
         model_rec = kernel_record("model_512_262k_view0", args, overflow)
         bwd_recs = bwd_records("model_512_262k_view0", args, batch["tar_rgb"][0, 0])
         # scene B at the 3DGS train step's warmup budgets
-        max_tiles, enum_tiles, max_per_tile = WARMUP_BUDGETS["3dgs"]
+        max_tiles, enum_tiles, max_per_tile = budgets_of("3dgs")
         args, overflow, _ = scenes.model_gaussians(
             out["render_pkg"][0], cam, cfg, None, max_tiles, max_per_tile, enum_tiles)
         warm_rec = kernel_record("model_512_262k_view0_warmup", args, overflow)
@@ -1308,7 +1702,7 @@ def main() -> int:
         runs += [(f"surfel_adversarial_256_ts{ts}",
                   *scenes.surfel_adversarial_scene(dev, ts), None, False)
                  for ts in (32, 16)]
-        max_tiles, enum_tiles, max_per_tile = WARMUP_BUDGETS["2dgs"]
+        max_tiles, enum_tiles, max_per_tile = budgets_of("2dgs")
         for label, budgets in (("", ()), ("_warmup",
                                           (None, max_tiles, max_per_tile, enum_tiles))):
             sargs, si = scenes.model_surfels(out2["render_pkg"][0], cam, cfg2, *budgets)
@@ -1351,20 +1745,32 @@ def main() -> int:
                                                   surfel_bwd=n_bwd)),
     }
 
-    # -- 9. the evaluation entry point on 2 synthetic scenes, each renderer
+    # -- 8b. the bf16 compute policy beside f32 (same weights and batch, in
+    # turns), and one 2DGS bf16 micro-step
+    bf16 = bf16_phase(batch, expect(composite_fwd=2 * V_TOTAL, composite_bwd=N_VIEWS),
+                      expect(composite_fwd=2 * V_TOTAL, composite_bwd=n_bwd),
+                      expect(surfel_fwd=2 * V_TOTAL, surfel_bwd=n_bwd))
+
+    # -- 8c. the train CLI at its config defaults (bf16, B=3), checkpoint
+    # and resume
+    cli = cli_phase()
+
+    # -- 9. the evaluation entry point on 2 synthetic scenes, each renderer:
+    # 3DGS at the config's dtype (bf16), 2DGS in f32 as before
     evals = {}
-    for renderer in ("3dgs", "2dgs"):
+    for renderer, dtype in (("3dgs", "bfloat16"), ("2dgs", "float32")):
         t0 = time.perf_counter()
         result = evaluation.main(scenes.fine_config(**{
             "infer.dataset.dataset_name": "synthetic", "infer.dataset.n_scenes": 2,
-            "infer.save_images": 0, "tpu.renderer": renderer}))
+            "infer.save_images": 0, "tpu.renderer": renderer,
+            "tpu.compute_dtype": dtype}))
         eval_s = time.perf_counter() - t0
         means = result["mean"]
         if len(result["scenes"]) != 2 or not all(np.isfinite(v) for v in means.values()):
             fail(f"evaluation result ({renderer}) malformed: {result}")
-        print(f"[eval {renderer}] 2 synthetic scenes at {HW}² in {eval_s:.1f}s: "
-              f"{json.dumps(means)}")
-        evals[renderer] = {"seconds": eval_s, "mean": means}
+        print(f"[eval {renderer} {dtype}] 2 synthetic scenes at {HW}² in "
+              f"{eval_s:.1f}s: {json.dumps(means)}")
+        evals[renderer] = {"seconds": eval_s, "mean": means, "dtype": dtype}
 
     # -- 10. the tiny configuration, card vs CPU, each renderer
     with torch.inference_mode():
@@ -1492,7 +1898,8 @@ def main() -> int:
                          "busy_ms": busy_s["busy_ms"],
                          "busy_wall_ms": busy_s["wall_ms"], "overflow": ov_surfel,
                          "peak_bytes": peak_s},
-        "train": train, "eval": evals, "tiny": tiny, "pyyaml": has_yaml,
+        "train": train, "bf16": bf16, "cli": cli, "eval": evals, "tiny": tiny,
+        "pyyaml": has_yaml,
         "scenes": [bench_rec, model_rec, warm_rec],
         "composite_bwd": {"A": bwd_recs_a, "B": bwd_recs, "B_warmup": bwd_recs_warm},
         "adversarial": adversarial,

@@ -1,27 +1,36 @@
 """Host-side data (numpy samples) and the device feed.
 
-``dataset_dict[name](cfg, device=None)`` builds a dataset, as the JAX
-package's registry does.  The port holds ``synthetic`` so far; the datasets
-that read files (GSO, Gobjaverse, Instant3D, ShapeNet, MipNeRF) arrive with
-ROADMAP queue 1 (data and the train CLI).
+The JAX package's registry: ``dataset_dict[name](cfg)`` builds a dataset
+whose samples are numpy dicts (``base.BATCH_ARRAY_KEYS``).  The file-backed
+datasets (``gobjverse``, ``gso``, ``instant3d``, ``shapenet``,
+``mipnerf``) are copies of the JAX package's, and import their optional
+packages (h5py, imageio, cv2, sklearn) when they are built or read: a
+missing package raises its ``ImportError`` there.  ``synthetic`` renders its
+ground truth with the port's rasterizer on a device; ``build_dataset``
+passes it one.  Batching, sharding and prefetching live in
+:mod:`.pipeline`.
 """
 
 from __future__ import annotations
 
+from .base import dataset_dict, register_dataset
+from .pipeline import BatchLoader, collate
+
+# register the datasets
+from . import gobjverse  # noqa: F401
+from . import gso  # noqa: F401
+from . import instant3d  # noqa: F401
+from . import shapenet  # noqa: F401
+from . import mipnerf  # noqa: F401
 from .synthetic import SyntheticDataset
 
-_NOT_PORTED = ("gobjeverse", "GSO", "instant3d", "shapenet", "mipnerf360")
+
+def build_dataset(cfg, device=None):
+    """``dataset_dict[cfg.dataset_name](cfg)``; the synthetic dataset
+    renders on ``device`` (``None``: the card)."""
+    cls = dataset_dict[cfg.dataset_name]
+    return cls(cfg, device=device) if cls is SyntheticDataset else cls(cfg)
 
 
-class _Registry(dict):
-    def __missing__(self, name):
-        if name in _NOT_PORTED:
-            raise NotImplementedError(
-                f"dataset {name!r} is not ported yet: it arrives with ROADMAP "
-                "queue 1 (data and the train CLI)")
-        raise KeyError(f"unknown dataset {name!r}; known: {sorted(self)}")
-
-
-dataset_dict = _Registry(synthetic=SyntheticDataset)
-
-__all__ = ["dataset_dict", "SyntheticDataset"]
+__all__ = ["dataset_dict", "register_dataset", "build_dataset", "BatchLoader",
+           "collate", "SyntheticDataset"]

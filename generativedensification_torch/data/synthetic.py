@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from .base import register_dataset
 from .utils import align_first_view, build_rays_np, fov_to_ixt
 
 
@@ -68,6 +69,7 @@ def make_probe_batch(B: int, V_total: int, H: int, W: int, n_views: int,
     }
 
 
+@register_dataset("synthetic")
 class SyntheticDataset:
     """Random Gaussian-blob scenes; ground truth rendered by the port's
     ``rasterize`` on ``device`` (``None``: the card)."""

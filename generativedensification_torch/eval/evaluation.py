@@ -9,13 +9,13 @@ per-scene JSON schema ``{"mean": ..., "scenes": {scene: {...}}}``.
     python -m generativedensification_torch.eval.evaluation [infer.yaml] [key=value ...]
 
 runs on the card; ``tpu.renderer=2dgs`` serves through the 2DGS surfel
-renderer.  The port's models compute in f32 (the bf16 compute
-policy arrives with ROADMAP slice 5), so the command line sets
-``tpu.compute_dtype=float32`` ahead of the given overrides; the config
-default ``bfloat16`` of the TPU group would raise.  ``infer.ckpt_path``
-None means seeded weights (``infer.seed``, default 0).  Not ported yet,
-each raising with its ROADMAP item: checkpoints, finetuning (``with_ft``),
-the orbit video, the mesh, and LPIPS.
+renderer, and the network computes in ``tpu.compute_dtype`` (the config
+default ``bfloat16``, as the JAX evaluation serves).  ``infer.ckpt_path``
+None means seeded weights (``infer.seed``, default 0); a directory is a
+training checkpoint of ``train.train`` (``train/state.py::restore_params``,
+the latest step).  Not ported yet, each raising with its ROADMAP item: the
+reference's Lightning checkpoints (``.ckpt`` / ``.pt`` / ``.pth``),
+finetuning (``with_ft``), the orbit video, the mesh, and LPIPS.
 """
 
 from __future__ import annotations
@@ -28,9 +28,10 @@ import numpy as np
 import torch
 
 from ..config import ConfigNode, default_infer_config, from_dotlist, load_yaml, merge
-from ..data import dataset_dict
+from ..data import build_dataset
 from ..data.pipeline import collate, to_device_batch
 from ..models.network import Network, NetworkConfig
+from ..train.state import restore_params
 from ..utils.device import resolve_device
 from .metrics import abs_error, acc_threshold, lpips_fn, psnr_img, ssim_img
 
@@ -51,11 +52,14 @@ def _check_supported(icfg) -> None:
             "queue 1 (eval and tools)")
     if icfg.get("eval_lpips", False):
         lpips_fn("vgg")     # raises: no converted LPIPS weights here
-    if icfg.ckpt_path not in (None, "None"):
-        raise NotImplementedError(
-            f"infer.ckpt_path={icfg.ckpt_path!r}: the port's checkpoints "
-            "arrive with ROADMAP slice 5 (checkpoints); None runs seeded "
-            "weights")
+    ckpt = icfg.ckpt_path
+    if ckpt not in (None, "None") and not os.path.isdir(ckpt):
+        if str(ckpt).endswith((".ckpt", ".pt", ".pth")):
+            raise NotImplementedError(
+                f"infer.ckpt_path={ckpt!r}: the reference's Lightning "
+                "checkpoints arrive with ROADMAP queue 1 (eval and tools); a "
+                "directory of train.train checkpoints loads")
+        raise FileNotFoundError(ckpt)
 
 
 def main(cfg: ConfigNode, device=None) -> dict:
@@ -66,13 +70,15 @@ def main(cfg: ConfigNode, device=None) -> dict:
     ds_cfg = icfg.dataset
     _check_supported(icfg)
     dev = resolve_device(device)
-    dataset = dataset_dict[ds_cfg.dataset_name](ds_cfg, device=dev)
+    dataset = build_dataset(ds_cfg, device=dev)
     os.makedirs(icfg.save_folder, exist_ok=True)
 
     n_views = cfg.n_views
     eval_depth = list(icfg.get("eval_depth", []) or [])
     net = Network(NetworkConfig.from_config(cfg), device=dev,
                   seed=int(icfg.get("seed", 0)))
+    if icfg.ckpt_path not in (None, "None"):
+        net.load_state_dict(restore_params(icfg.ckpt_path))
     net.eval()
 
     per_scene = {}
@@ -146,10 +152,8 @@ def _save_comparison(folder, scene, gt, coarse, fine):
 
 
 def config_from_args(args: list[str]) -> ConfigNode:
-    """infer defaults with ``tpu.compute_dtype=float32``, then the yaml
-    files, then the dotted overrides."""
+    """infer defaults, then the yaml files, then the dotted overrides."""
     base = default_infer_config()
-    base.set_dotted("tpu.compute_dtype", "float32")
     yamls = [a for a in args if a.endswith((".yaml", ".yml"))]
     overrides = [a for a in args if "=" in a and not a.endswith((".yaml", ".yml"))]
     nodes = [base, *(load_yaml(p) for p in yamls)]

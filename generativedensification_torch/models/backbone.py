@@ -13,6 +13,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .init import init_module_, normal_, remat_call, xavier_uniform_
+from .precision import F32, conv, dense, gelu, layer_norm, logits_f32
 
 LN_EPS = 1e-6
 
@@ -76,40 +77,45 @@ def bilinear_sample(img: torch.Tensor, xy_norm: torch.Tensor) -> torch.Tensor:
 
 class ModLN(nn.Module):
     """adaLN modulation: ``LN(x) * (1 + scale) + shift`` with shift/scale
-    from SiLU+Linear over the conditioning."""
+    from SiLU+Linear over the conditioning, computed in ``dtype``."""
 
-    def __init__(self, inner_dim: int, cond_dim: int):
+    def __init__(self, inner_dim: int, cond_dim: int, dtype: torch.dtype = F32):
         super().__init__()
+        self.dtype = dtype
         self.mlp = nn.Linear(cond_dim, inner_dim * 2)
         self.norm = nn.LayerNorm(inner_dim, eps=LN_EPS)
 
     def forward(self, x, cond):
-        shift, scale = self.mlp(F.silu(cond)).chunk(2, dim=-1)
-        return self.norm(x) * (1 + scale) + shift
+        dt = self.dtype
+        shift, scale = dense(self.mlp, F.silu(cond).to(dt), dt).chunk(2, dim=-1)
+        return layer_norm(self.norm, x, dt) * (1 + scale) + shift
 
 
 class CrossAttention(nn.Module):
-    """Multi-head cross-attention with separate kv input dim, no biases."""
+    """Multi-head cross-attention with separate kv input dim, no biases;
+    projections in ``dtype``, logits and softmax in f32."""
 
-    def __init__(self, dim: int, num_heads: int, kv_dim: int, use_bias: bool = False):
+    def __init__(self, dim: int, num_heads: int, kv_dim: int, use_bias: bool = False,
+                 dtype: torch.dtype = F32):
         super().__init__()
         self.num_heads = num_heads
+        self.dtype = dtype
         self.q = nn.Linear(dim, dim, bias=use_bias)
         self.k = nn.Linear(kv_dim, dim, bias=use_bias)
         self.v = nn.Linear(kv_dim, dim, bias=use_bias)
         self.out = nn.Linear(dim, dim, bias=use_bias)
 
     def forward(self, q_in, kv_in):
-        H = self.num_heads
-        q = self.q(q_in)
+        H, dt = self.num_heads, self.dtype
+        q = dense(self.q, q_in, dt)
         D = q.shape[-1] // H
         q = q.reshape(*q.shape[:-1], H, D)
-        k = self.k(kv_in).reshape(*kv_in.shape[:-1], H, D)
-        v = self.v(kv_in).reshape(*kv_in.shape[:-1], H, D)
-        attn = torch.einsum("...qhd,...khd->...hqk", q, k) * (D ** -0.5)
-        attn = torch.softmax(attn, dim=-1)
+        k = dense(self.k, kv_in, dt).reshape(*kv_in.shape[:-1], H, D)
+        v = dense(self.v, kv_in, dt).reshape(*kv_in.shape[:-1], H, D)
+        attn = logits_f32("...qhd,...khd->...hqk", q, k) * (D ** -0.5)
+        attn = torch.softmax(attn, dim=-1).to(dt)
         out = torch.einsum("...hqk,...khd->...qhd", attn, v)
-        return self.out(out.reshape(*out.shape[:-2], H * D))
+        return dense(self.out, out.reshape(*out.shape[:-2], H * D), dt)
 
 
 def _unfold3d(x: torch.Tensor, g: int, bs: int) -> torch.Tensor:
@@ -128,21 +134,24 @@ def _fold3d(p: torch.Tensor, g: int, bs: int) -> torch.Tensor:
     return x.reshape(B, g * bs, g * bs, g * bs, C)
 
 
-def _channels_last_conv3d(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    return conv(x.permute(0, 4, 1, 2, 3)).permute(0, 2, 3, 4, 1)
+def _channels_last_conv3d(layer: nn.Module, x: torch.Tensor,
+                          dtype: torch.dtype = F32) -> torch.Tensor:
+    return conv(layer, x.permute(0, 4, 1, 2, 3), dtype).permute(0, 2, 3, 4, 1)
 
 
 class GroupAttBlock(nn.Module):
     """Volume transformer layer: per-group cross attention from block voxel
     tokens to that group's image-feature tokens, MLP, then a 3³ conv
-    residual over the refolded volume."""
+    residual over the refolded volume, all in ``dtype``."""
 
     def __init__(self, inner_dim: int, cond_dim: int, num_heads: int,
-                 mlp_ratio: float = 2.0):
+                 mlp_ratio: float = 2.0, dtype: torch.dtype = F32):
         super().__init__()
         hidden = int(inner_dim * mlp_ratio)
+        self.dtype = dtype
         self.norm1 = nn.LayerNorm(inner_dim, eps=LN_EPS)
-        self.cross_attn = CrossAttention(inner_dim, num_heads, cond_dim)
+        self.cross_attn = CrossAttention(inner_dim, num_heads, cond_dim,
+                                         dtype=dtype)
         self.norm2 = nn.LayerNorm(inner_dim, eps=LN_EPS)
         self.mlp_fc1 = nn.Linear(inner_dim, hidden)
         self.mlp_fc2 = nn.Linear(hidden, inner_dim)
@@ -151,30 +160,34 @@ class GroupAttBlock(nn.Module):
 
     def forward(self, x, cond, group_axis: int, block_size: int):
         """x: (B, D, H, W, C); cond: (B, g³, L_cond, cond_dim)."""
-        g, bs = group_axis, block_size
-        patches = _unfold3d(x, g, bs)
-        patches = patches + self.cross_attn(self.norm1(patches), cond)
-        h = F.gelu(self.mlp_fc1(self.norm2(patches)), approximate="tanh")
-        patches = patches + self.mlp_fc2(h)
-        vol = _fold3d(self.norm3(patches), g, bs)
-        return vol + _channels_last_conv3d(self.cnn, vol)
+        g, bs, dt = group_axis, block_size, self.dtype
+        patches = _unfold3d(x.to(dt), g, bs)
+        patches = patches + self.cross_attn(layer_norm(self.norm1, patches, dt),
+                                            cond)
+        h = dense(self.mlp_fc1, layer_norm(self.norm2, patches, dt), dt)
+        patches = patches + dense(self.mlp_fc2, gelu(h), dt)
+        vol = _fold3d(layer_norm(self.norm3, patches, dt), g, bs)
+        return vol + _channels_last_conv3d(self.cnn, vol, dt)
 
 
 class VolTransformer(nn.Module):
     """Learned R³ positional volume refined by ``num_layers`` group-attention
-    blocks, upsampled 2x by a transposed conv."""
+    blocks (in ``dtype``), upsampled 2x by a transposed conv (final norm and
+    deconv in f32: they feed the f32 Gaussian heads)."""
 
     def __init__(self, embed_dim: int = 256, image_feat_dim: int = 800,
                  n_groups: tuple = (16,), vol_low_res: int = 32,
-                 out_dim: int = 80, num_layers: int = 12, num_heads: int = 16):
+                 out_dim: int = 80, num_layers: int = 12, num_heads: int = 16,
+                 dtype: torch.dtype = F32):
         super().__init__()
+        self.dtype = dtype
         self.embed_dim = embed_dim
         self.n_groups = tuple(n_groups)
         self.vol_low_res = R = vol_low_res
         self.out_dim = out_dim
         self.pos_embed = nn.Parameter(torch.zeros(1, R, R, R, embed_dim))
         self.layers = nn.ModuleList(
-            GroupAttBlock(embed_dim, image_feat_dim, num_heads)
+            GroupAttBlock(embed_dim, image_feat_dim, num_heads, dtype=dtype)
             for _ in range(num_layers)
         )
         self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
@@ -193,15 +206,15 @@ class VolTransformer(nn.Module):
             bs = D // n_group
             blk = _unfold3d(image_feats.reshape(B * V, D, H, W, C), n_group, bs)
             blk = blk.reshape(B, V, n_group ** 3, bs ** 3, C).transpose(1, 2)
-            conds.append(blk.reshape(B, n_group ** 3, V * bs ** 3, C))
-        x = self.pos_embed.expand(B, R, R, R, self.embed_dim)
+            conds.append(blk.reshape(B, n_group ** 3, V * bs ** 3, C).to(self.dtype))
+        x = self.pos_embed.expand(B, R, R, R, self.embed_dim).to(self.dtype)
         block_sizes = [R // n for n in self.n_groups]
         for i, layer in enumerate(self.layers):
             gi = i % len(self.n_groups)
             # recomputed in the backward
             x = remat_call(layer, x, conds[gi], self.n_groups[gi],
                            block_sizes[gi])
-        x = _channels_last_conv3d(self.deconv, self.norm(x))
+        x = _channels_last_conv3d(self.deconv, self.norm(x.to(F32)))
         return x.reshape(B, -1, self.out_dim)
 
 

@@ -31,8 +31,12 @@ launch per view, one ``selonly`` surfel backward per source view for the
 fused selection) and adds the coarse ``rend_dist``, ``rend_normal`` and
 ``depth_normal`` maps; ``depth`` is then the 2DGS surface depth.
 
-Not ported yet: the bf16 compute policy (``compute_dtype="bfloat16"``
-raises, ROADMAP slice 5).
+``compute_dtype="bfloat16"`` (``tpu.compute_dtype``, the config default) is
+the JAX bf16 compute policy (``models/precision.py``): the ViT, the Plücker
+modulation, the volume transformer's blocks and the densifier's blocks and
+upscalers compute in bf16 over f32 parameters; the softmax and LayerNorm
+statistics, the Gaussian heads, the rasterizer and its kernels and the loss
+stay f32.
 """
 
 from __future__ import annotations
@@ -78,6 +82,7 @@ from .backbone import (
     project_points,
 )
 from .init import init_module_, lecun_normal_, normal_
+from .precision import DTYPES, F32
 from .vit import DinoEncoder
 
 
@@ -201,6 +206,11 @@ class NetworkConfig:
         )
 
     @property
+    def dtype(self) -> torch.dtype:
+        """The compute dtype (bf16 for ``"bfloat16"``, else f32, as JAX)."""
+        return DTYPES.get(self.compute_dtype, F32)
+
+    @property
     def sh_dim(self) -> int:
         return 3 * (self.sh_degree + 1) ** 2
 
@@ -261,14 +271,15 @@ class DensifierStage(nn.Module):
                   cfg.qkv_bias, cfg.qk_scale, cfg.pre_norm,
                   order_index=i % len(cfg.order), pdnorm_n=cfg.pdnorm_n,
                   attn_drop=cfg.attn_drop, proj_drop=cfg.proj_drop,
-                  drop_path=dpr_s[i])
+                  drop_path=dpr_s[i], dtype=cfg.dtype)
             for i in range(cfg.dec_depths[s])
         )
         self.up = UpscaleModule(
             C, out_ch, cfg.upscale_factor[s], cfg.n_frequencies,
             cfg.enable_absolute_pe, carry_attribute=cfg.enable_residual_attribute,
             pdnorm_n=cfg.pdnorm_n,
-            drop_path=dpr_s[-1] if cfg.enable_upscale_drop_path else 0.0)
+            drop_path=dpr_s[-1] if cfg.enable_upscale_drop_path else 0.0,
+            dtype=cfg.dtype)
         self.head = GaussianModule(out_ch, cfg.sh_degree)
         gate = MaskResModule if cfg.enable_residual_attribute else MaskModule
         self.mask = gate(out_ch, cfg.temperature, ratio, cfg.mask_sampling_type)
@@ -342,16 +353,12 @@ class Network(nn.Module):
 
     def __init__(self, cfg: NetworkConfig, device=None, seed: int = 0):
         super().__init__()
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={cfg.compute_dtype!r}: the bf16 compute policy "
-                "arrives with ROADMAP slice 5 (with the data loaders and the "
-                "train CLI)")
         self.cfg = cfg
         dev = resolve_device(device)
-        self.img_encoder = DinoEncoder(cfg.encoder_backbone)
+        self.img_encoder = DinoEncoder(cfg.encoder_backbone, cfg.dtype)
         C = self.img_encoder.num_features
-        self.dir_norm = ModLN(C, 2 * 16)     # two degree-3 rsh_cart blocks
+        # two degree-3 rsh_cart blocks
+        self.dir_norm = ModLN(C, 2 * 16, cfg.dtype)
         self.view_embed = (
             nn.Parameter(torch.zeros(1, 4, 1, cfg.view_embed_dim))
             if cfg.view_embed_dim > 0 else None
@@ -364,6 +371,7 @@ class Network(nn.Module):
             out_dim=cfg.vol_embedding_out_dim,
             num_layers=cfg.num_layers,
             num_heads=cfg.num_heads,
+            dtype=cfg.dtype,
         )
         self.decoder = GaussianDecoder(
             in_dim=cfg.vol_embedding_out_dim, sh_dim=cfg.sh_dim, K=cfg.K

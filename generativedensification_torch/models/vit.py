@@ -13,10 +13,10 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from .init import init_module_, normal_, remat_call
+from .precision import F32, conv, dense, gelu, layer_norm, logits_f32, weak
 
 DINO_MEAN = (0.485, 0.456, 0.406)
 DINO_STD = (0.229, 0.224, 0.225)
@@ -65,13 +65,14 @@ def resize_bicubic(grid: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
 
 
 class BlockedSelfAttention(nn.Module):
-    """Multi-head self-attention, one f32 matmul + softmax per head (the JAX
+    """Multi-head self-attention, one matmul + f32 softmax per head (the JAX
     module computes the same in query blocks; blocking does not change the
-    values)."""
+    values).  Projections in ``dtype``, logits in f32."""
 
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype = F32):
         super().__init__()
         self.num_heads = num_heads
+        self.dtype = dtype
         self.query = nn.Linear(dim, dim)
         self.key = nn.Linear(dim, dim)
         self.value = nn.Linear(dim, dim)
@@ -81,37 +82,45 @@ class BlockedSelfAttention(nn.Module):
         B, L, C = x.shape
         H = self.num_heads
         Dh = C // H
-        q = self.query(x).view(B, L, H, Dh) / math.sqrt(Dh)
-        k = self.key(x).view(B, L, H, Dh)
-        v = self.value(x).view(B, L, H, Dh)
-        logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
-        w = torch.softmax(logits, dim=-1)
+        dt = self.dtype
+        q = dense(self.query, x, dt).view(B, L, H, Dh)
+        q = q / weak(math.sqrt(Dh), q)
+        k = dense(self.key, x, dt).view(B, L, H, Dh)
+        v = dense(self.value, x, dt).view(B, L, H, Dh)
+        logits = logits_f32("bqhd,bkhd->bhqk", q, k)
+        w = torch.softmax(logits, dim=-1).to(dt)
         out = torch.einsum("bhqk,bkhd->bqhd", w, v)
-        return self.out(out.reshape(B, L, C))
+        return dense(self.out, out.reshape(B, L, C), dt)
 
 
 class ViTBlock(nn.Module):
-    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 dtype: torch.dtype = F32):
         super().__init__()
+        self.dtype = dtype
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.attn = BlockedSelfAttention(dim, num_heads)
+        self.attn = BlockedSelfAttention(dim, num_heads, dtype)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp_fc1 = nn.Linear(dim, int(dim * mlp_ratio))
         self.mlp_fc2 = nn.Linear(int(dim * mlp_ratio), dim)
 
     def forward(self, x):
-        x = x + self.attn(self.norm1(x))
-        h = F.gelu(self.mlp_fc1(self.norm2(x)), approximate="tanh")
-        return x + self.mlp_fc2(h)
+        dt = self.dtype
+        x = x + self.attn(layer_norm(self.norm1, x, dt))
+        h = dense(self.mlp_fc1, layer_norm(self.norm2, x, dt), dt)
+        return x + dense(self.mlp_fc2, gelu(h), dt)
 
 
 class VisionTransformer(nn.Module):
-    """Patch-embed ViT returning all tokens (CLS first)."""
+    """Patch-embed ViT returning all tokens (CLS first): patch embed and
+    blocks in ``dtype``, the final LayerNorm in f32 (its tokens feed the f32
+    volume lift)."""
 
     def __init__(self, patch_size: int = 16, dim: int = 768, depth: int = 12,
                  num_heads: int = 12, mlp_ratio: float = 4.0,
-                 base_grid: int = 14):
+                 base_grid: int = 14, dtype: torch.dtype = F32):
         super().__init__()
+        self.dtype = dtype
         self.patch_size = patch_size
         self.dim = dim
         self.base_grid = base_grid
@@ -119,7 +128,7 @@ class VisionTransformer(nn.Module):
         self.cls_token = nn.Parameter(torch.zeros(1, 1, dim))
         self.pos_embed = nn.Parameter(torch.zeros(1, base_grid * base_grid + 1, dim))
         self.blocks = nn.ModuleList(
-            ViTBlock(dim, num_heads, mlp_ratio) for _ in range(depth)
+            ViTBlock(dim, num_heads, mlp_ratio, dtype) for _ in range(depth)
         )
         self.norm = nn.LayerNorm(dim, eps=LN_EPS)
 
@@ -132,19 +141,19 @@ class VisionTransformer(nn.Module):
         """images: (B, H, W, 3) already normalized -> (B, 1+L, dim)."""
         B, H, W, _ = images.shape
         gh, gw = H // self.patch_size, W // self.patch_size
-        x = self.patch_embed(images.permute(0, 3, 1, 2))      # (B, dim, gh, gw)
+        x = conv(self.patch_embed, images.permute(0, 3, 1, 2), self.dtype)
         x = x.permute(0, 2, 3, 1).reshape(B, gh * gw, self.dim)
         cls_pos, grid_pos = self.pos_embed[:, :1], self.pos_embed[:, 1:]
         if (gh, gw) != (self.base_grid, self.base_grid):
             grid_pos = resize_bicubic(
                 grid_pos.reshape(self.base_grid, self.base_grid, self.dim), gh, gw
             ).reshape(1, gh * gw, self.dim)
-        x = x + grid_pos
-        cls_tok = (self.cls_token + cls_pos).expand(B, 1, self.dim)
+        x = x + grid_pos.to(x.dtype)
+        cls_tok = (self.cls_token + cls_pos).expand(B, 1, self.dim).to(x.dtype)
         x = torch.cat([cls_tok, x], dim=1)
         for blk in self.blocks:
             x = remat_call(blk, x)  # recomputed in the backward
-        return self.norm(x)
+        return self.norm(x.to(F32))
 
 
 VIT_VARIANTS = {  # name fragment -> (dim, depth, heads)
@@ -157,15 +166,18 @@ VIT_VARIANTS = {  # name fragment -> (dim, depth, heads)
 class DinoEncoder(nn.Module):
     """Normalize [0, 1] RGB, encode, drop the CLS token."""
 
-    def __init__(self, variant: str = "vit_base_patch16_224.dino"):
+    def __init__(self, variant: str = "vit_base_patch16_224.dino",
+                 dtype: torch.dtype = F32):
         super().__init__()
+        self.dtype = dtype
         for key, (dim, depth, heads) in VIT_VARIANTS.items():
             if key in variant:
                 break
         else:
             raise NotImplementedError(f"unknown ViT variant {variant!r}")
         self.num_features = dim
-        self.vit = VisionTransformer(dim=dim, depth=depth, num_heads=heads)
+        self.vit = VisionTransformer(dim=dim, depth=depth, num_heads=heads,
+                                     dtype=dtype)
         self.register_buffer("mean", torch.tensor(DINO_MEAN), persistent=False)
         self.register_buffer("std", torch.tensor(DINO_STD), persistent=False)
 
@@ -174,4 +186,4 @@ class DinoEncoder(nn.Module):
 
     def forward(self, images):
         """images: (B, H, W, 3) in [0, 1] -> (B, L, C) patch tokens."""
-        return self.vit((images - self.mean) / self.std)[:, 1:]
+        return self.vit(((images - self.mean) / self.std).to(self.dtype))[:, 1:]

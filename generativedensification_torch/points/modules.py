@@ -21,9 +21,9 @@ Sub-module names follow the Flax tree (``utils/convert.py`` maps weights).
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from ..models.precision import F32, dense, gelu, weak
 from .ops import (
     NEG_INF,
     masked_layer_norm,
@@ -35,11 +35,6 @@ from .ops import (
     topk_split,
 )
 from .structure import PointSet, gather_points, gather_rows
-
-
-def gelu(x: torch.Tensor) -> torch.Tensor:
-    """Flax's ``nn.gelu``: the tanh approximation."""
-    return F.gelu(x, approximate="tanh")
 
 
 def keep_mask(shape, keep: float, gen: torch.Generator | None,
@@ -59,7 +54,7 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
         return x
     keep = 1.0 - rate
     mask = keep_mask(x.shape, keep, gen, x.device)
-    return torch.where(mask, x / keep, torch.zeros_like(x))
+    return torch.where(mask, x / weak(keep, x), torch.zeros_like(x))
 
 
 def drop_path(x: torch.Tensor, rate: float, training: bool,
@@ -70,7 +65,7 @@ def drop_path(x: torch.Tensor, rate: float, training: bool,
         return x
     keep = 1.0 - rate
     mask = keep_mask((x.shape[0],) + (1,) * (x.dim() - 1), keep, gen, x.device)
-    return torch.where(mask, x / keep, torch.zeros_like(x))
+    return torch.where(mask, x / weak(keep, x), torch.zeros_like(x))
 
 
 class PDNorm(nn.Module):
@@ -91,27 +86,33 @@ def _norm(module: PDNorm | None, x: torch.Tensor, condition: int) -> torch.Tenso
 
 
 class PointMLP(nn.Module):
-    """fc1 - gelu - dropout - fc2 - dropout."""
+    """fc1 - gelu - dropout - fc2 - dropout, in ``dtype``."""
 
-    def __init__(self, in_dim: int, hidden: int, out: int, drop: float = 0.0):
+    def __init__(self, in_dim: int, hidden: int, out: int, drop: float = 0.0,
+                 dtype: torch.dtype = F32):
         super().__init__()
         self.fc1 = nn.Linear(in_dim, hidden)
         self.fc2 = nn.Linear(hidden, out)
         self.drop = drop
+        self.dtype = dtype
 
     def forward(self, x, gen=None):
-        x = dropout(gelu(self.fc1(x)), self.drop, self.training, gen)
-        return dropout(self.fc2(x), self.drop, self.training, gen)
+        x = dropout(gelu(dense(self.fc1, x, self.dtype)), self.drop,
+                    self.training, gen)
+        return dropout(dense(self.fc2, x, self.dtype), self.drop, self.training,
+                       gen)
 
 
 class WindowAttention(nn.Module):
-    """Windowed attention over one serialized order (window = patch_size)."""
+    """Windowed attention over one serialized order (window = patch_size);
+    projections in ``dtype``, logits and softmax in f32."""
 
     def __init__(self, channels: int, num_heads: int, patch_size: int,
                  qkv_bias: bool = True, qk_scale: float | None = None,
                  order_index: int = 0, attn_drop: float = 0.0,
-                 proj_drop: float = 0.0):
+                 proj_drop: float = 0.0, dtype: torch.dtype = F32):
         super().__init__()
+        self.dtype = dtype
         self.attn_drop, self.proj_drop = attn_drop, proj_drop
         self.num_heads = num_heads
         self.patch_size = patch_size
@@ -131,48 +132,55 @@ class WindowAttention(nn.Module):
         order = ps.orders[self.order_index]
         inverse = ps.inverses[self.order_index]
 
-        qkv = gather_rows(self.qkv(ps.feat), order)
+        dt = self.dtype
+        qkv = gather_rows(dense(self.qkv, ps.feat, dt), order)
         kmask = torch.gather(ps.mask, 1, order)
         qkv = qkv.reshape(B, nw, K, 3, H, D).permute(3, 0, 1, 4, 2, 5)
         q, k, v = qkv[0], qkv[1], qkv[2]                 # (B, nw, H, K, D)
-        attn = torch.matmul(q * scale, k.transpose(-1, -2))
+        # bf16 products kept in f32 (exact), as preferred_element_type
+        attn = torch.matmul((q * weak(scale, q)).to(F32), k.to(F32).transpose(-1, -2))
         attn = torch.where(kmask.reshape(B, nw, 1, 1, K), attn,
                            torch.full_like(attn, NEG_INF))
         attn = torch.softmax(attn, dim=-1)
         attn = dropout(attn, self.attn_drop, self.training, gen)
-        out = torch.matmul(attn, v)
+        out = torch.matmul(attn.to(dt), v)
         out = out.permute(0, 1, 3, 2, 4).reshape(B, N, C)
-        out = self.proj(gather_rows(out, inverse))
+        out = dense(self.proj, gather_rows(out, inverse), dt)
         return dropout(out, self.proj_drop, self.training, gen)
 
 
-def neighbor_conv27(feat: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def neighbor_conv27(feat: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
+                    dtype: torch.dtype = F32) -> torch.Tensor:
     """``y[b,n] = Σ_o feat[b, nbr[b,n,o]] @ w[o]`` (a miss, ``nbr < 0``,
     contributes zero): one gather of the 27 neighbor rows and one
-    (N, 27·C) x (27·C, D) product.  Autograd differentiates the gather: the
+    (N, 27·C) x (27·C, D) product in ``dtype``, which accumulates the taps
+    in f32 and rounds once, as the JAX tap sum followed by
+    ``.astype(compute_dtype)``.  Autograd differentiates the gather: the
     feature gradient of a point sums its queries' cotangents, which is the
     JAX package's tap-reversed custom backward (only voxel representatives
     are ever gathered, so co-voxel duplicates get none in both)."""
     B, N, C = feat.shape
     g = gather_rows(feat, nbr.clamp(min=0).reshape(B, N * 27)).reshape(B, N, 27, C)
     g = torch.where((nbr >= 0)[..., None], g, torch.zeros_like(g))
-    return torch.matmul(g.reshape(B, N, 27 * C), w.reshape(27 * C, -1))
+    return torch.matmul(g.reshape(B, N, 27 * C).to(dtype),
+                        w.reshape(27 * C, -1).to(dtype))
 
 
 class NeighborConvCPE(nn.Module):
     """xCPE: submanifold 3³ conv + Linear + LN.  ``weight`` keeps the Flax
-    kernel's (27, C_in, C_out) layout."""
+    kernel's (27, C_in, C_out) layout.  Conv and Linear in ``dtype``."""
 
-    def __init__(self, channels: int, pdnorm_n: int = 0):
+    def __init__(self, channels: int, pdnorm_n: int = 0, dtype: torch.dtype = F32):
         super().__init__()
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(27, channels, channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.linear = nn.Linear(channels, channels)
         self.norm = PDNorm(channels, pdnorm_n) if pdnorm_n else None
 
     def forward(self, ps: PointSet) -> torch.Tensor:
-        y = neighbor_conv27(ps.feat, ps.neighbor_idx, self.weight) + self.bias
-        return _norm(self.norm, self.linear(y), ps.condition)
+        y = neighbor_conv27(ps.feat, ps.neighbor_idx, self.weight, self.dtype) + self.bias
+        return _norm(self.norm, dense(self.linear, y, self.dtype), ps.condition)
 
 
 class Block(nn.Module):
@@ -184,15 +192,16 @@ class Block(nn.Module):
                  qk_scale: float | None = None, pre_norm: bool = True,
                  order_index: int = 0, pdnorm_n: int = 0,
                  attn_drop: float = 0.0, proj_drop: float = 0.0,
-                 drop_path: float = 0.0):
+                 drop_path: float = 0.0, dtype: torch.dtype = F32):
         super().__init__()
         self.pre_norm = pre_norm
         self.drop_path = drop_path
-        self.cpe = NeighborConvCPE(channels, pdnorm_n)
+        self.cpe = NeighborConvCPE(channels, pdnorm_n, dtype)
         self.attn = WindowAttention(channels, num_heads, patch_size, qkv_bias,
-                                    qk_scale, order_index, attn_drop, proj_drop)
+                                    qk_scale, order_index, attn_drop, proj_drop,
+                                    dtype)
         self.mlp = PointMLP(channels, int(channels * mlp_ratio), channels,
-                            proj_drop)
+                            proj_drop, dtype)
         self.norm1 = PDNorm(channels, pdnorm_n) if pdnorm_n else None
         self.norm2 = PDNorm(channels, pdnorm_n) if pdnorm_n else None
 
@@ -231,14 +240,17 @@ def positional_encoding(freqs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 class UpscaleModule(nn.Module):
     """Learned S×N upsampling: each parent emits S children at
     ``coord + 0.5·grid_size·tanh(delta_x)`` with features
-    ``skip(parent) + drop_path(delta_f([PE(dx), parent]))``."""
+    ``skip(parent) + drop_path(delta_f([PE(dx), parent]))``; the layers in
+    ``dtype`` but the coordinate head ``delta_x_fc2`` (geometry, f32), and
+    the output features in f32."""
 
     def __init__(self, in_channels: int, out_channels: int, upscale_factor: int,
                  n_frequencies: int = 15, enable_absolute_pe: bool = False,
                  carry_attribute: bool = False, pdnorm_n: int = 0,
-                 drop_path: float = 0.0):
+                 drop_path: float = 0.0, dtype: torch.dtype = F32):
         super().__init__()
         C, S = in_channels, upscale_factor
+        self.dtype = dtype
         self.drop_path = drop_path
         self.upscale_factor = S
         self.n_frequencies = n_frequencies
@@ -254,10 +266,11 @@ class UpscaleModule(nn.Module):
         self.out_norm = PDNorm(out_channels, pdnorm_n) if pdnorm_n else None
 
     def forward(self, ps: PointSet, gen=None) -> PointSet:
-        S = self.upscale_factor
+        S, dt = self.upscale_factor, self.dtype
         B, N, _ = ps.feat.shape
-        feat = _norm(self.in_norm, ps.feat, ps.condition)
-        delta_x = self.delta_x_fc2(gelu(self.delta_x_fc1(feat)))
+        feat = _norm(self.in_norm, ps.feat, ps.condition).to(dt)
+        delta_x = dense(self.delta_x_fc2, gelu(dense(self.delta_x_fc1, feat, dt)),
+                        F32)
         delta_x = 0.5 * ps.grid_size * torch.tanh(delta_x.reshape(B, N * S, 3))
 
         skip_x = torch.repeat_interleave(ps.coord, S, dim=1)
@@ -267,13 +280,14 @@ class UpscaleModule(nn.Module):
             freqs = 2.0 ** torch.arange(self.n_frequencies, dtype=torch.float32,
                                         device=feat.device)
             pe = positional_encoding(freqs, out_x if self.enable_absolute_pe else delta_x)
-            df_in = torch.cat([pe, skip_f], dim=-1)
+            df_in = torch.cat([pe, skip_f.to(F32)], dim=-1)
         else:
-            df_in = torch.cat([delta_x, skip_f], dim=-1)
-        df = self.delta_f_fc1(masked_layer_norm(df_in))
-        out_f = self.skip(skip_f) + drop_path(self.delta_f_fc2(gelu(df)),
-                                              self.drop_path, self.training, gen)
-        out_f = _norm(self.out_norm, out_f, ps.condition)
+            df_in = torch.cat([delta_x, skip_f.to(F32)], dim=-1)
+        df = dense(self.delta_f_fc1, masked_layer_norm(df_in).to(dt), dt)
+        delta_f = dense(self.delta_f_fc2, gelu(df), dt)
+        out_f = dense(self.skip, skip_f, dt) + drop_path(
+            delta_f, self.drop_path, self.training, gen)
+        out_f = _norm(self.out_norm, out_f, ps.condition).to(F32)
 
         attribute = ps.attribute
         if self.carry_attribute and attribute is not None:

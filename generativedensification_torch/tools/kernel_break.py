@@ -556,9 +556,6 @@ def versus_parent(args, csrc: Path, reps: int = REPS) -> dict:
     return recs
 
 
-# the train step's warmup budgets (max_tiles, enum_tiles, max_per_tile) per
-# renderer (generativedensification_tpu/train/train.py:126-133)
-WARMUP_BUDGETS = {"3dgs": (9, 16, 8192), "2dgs": (16, 25, 16384)}
 # the compositor kernels of each renderer
 RENDERER_KERNELS = {"3dgs": ("composite_fwd", "composite_bwd"),
                     "2dgs": ("surfel_fwd", "surfel_bwd")}
@@ -586,6 +583,7 @@ def e2e_versus_parent(csrc: Path, dev, reps: int = 7,
     from ..train.optim import make_optimizer
     from ..train.state import create_train_state
     from ..train.step import make_train_step
+    from ..train.train import warmup_budgets
 
     names = RENDERER_KERNELS[renderer]
     libs = kernels.build(kernels.MAIN_KERNELS)
@@ -597,11 +595,10 @@ def e2e_versus_parent(csrc: Path, dev, reps: int = 7,
         **{"tpu.renderer": renderer})), device=dev, seed=0)
     net.eval()
     tcfg = load_config()
-    max_tiles, enum_tiles, max_per_tile = WARMUP_BUDGETS[renderer]
-    for k, v in (("tpu.compute_dtype", "float32"), ("tpu.renderer", renderer),
-                 ("tpu.max_tiles", max_tiles), ("tpu.enum_tiles", enum_tiles),
-                 ("tpu.max_per_tile", max_per_tile), ("tpu.pair_budget", 0.0)):
-        tcfg.set_dotted(k, v)
+    tcfg.set_dotted("tpu.compute_dtype", "float32")
+    tcfg.set_dotted("tpu.renderer", renderer)
+    for k, v in warmup_budgets(tcfg).items():
+        tcfg.set_dotted(f"tpu.{k}", v)
     tnet = Network(NetworkConfig.from_config(tcfg), device=dev, seed=0)
     opt = make_optimizer(tnet, accumulate=2)
     state = [create_train_state(tnet, opt, seed=0)]

@@ -72,6 +72,18 @@ class OptaxAdamW(torch.optim.Optimizer):
     def _params(self):
         return [p for g in self.param_groups for p in g["params"]]
 
+    def state_dict(self):
+        """The moments and the accumulator of every parameter, and the two
+        counters (a checkpoint needs both to resume bitwise)."""
+        return dict(super().state_dict(), mini_step=self.mini_step,
+                    count=self.count)
+
+    def load_state_dict(self, state_dict):
+        state_dict = dict(state_dict)
+        self.mini_step = int(state_dict.pop("mini_step"))
+        self.count = int(state_dict.pop("count"))
+        super().load_state_dict(state_dict)
+
     @torch.no_grad()
     def step(self, closure=None, skip_zero_grad: bool = False):
         if closure is not None:

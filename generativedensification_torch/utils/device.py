@@ -15,7 +15,9 @@ def resolve_device(device=None) -> torch.device:
 
     A CUDA device also turns TF32 off for matmuls and cuDNN: the f32 path
     (patch-embed Conv2d, the 3³ Conv3d, the ConvTranspose3d) must run in
-    true f32, and cuDNN defaults to TF32 for convolutions.
+    true f32, and cuDNN defaults to TF32 for convolutions.  It turns off
+    cuBLAS's reduced-precision reductions of bf16 products too: the bf16
+    policy accumulates in f32, as XLA's bf16 dots do.
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
@@ -26,4 +28,5 @@ def resolve_device(device=None) -> torch.device:
             )
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return dev

@@ -296,8 +296,10 @@ def test_synthetic_dataset_matches_jax(monkeypatch):
     assert float(ts["tar_rgb"].min()) < 0.9       # the blobs are in view
     for k in ("tar_c2w", "tar_w2c", "tar_ixt", "tar_rays", "tar_rays_down"):
         np.testing.assert_array_equal(js[k], ts[k])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dataset_dict["GSO"]
+    # the file-backed datasets are registered (tests/test_torch_data.py)
+    from generativedensification_torch.data.gso import GSODataset
+
+    assert dataset_dict["GSO"] is GSODataset
 
 
 def test_evaluation_main_schema(tmp_path):
@@ -314,7 +316,8 @@ def test_evaluation_main_schema(tmp_path):
         f"infer.metric_path={tmp_path}/metrics.json", "infer.save_images=1",
     ]
     cfg = config_from_args(over)
-    assert cfg.tpu.compute_dtype == "float32" and cfg.model.k_num == 96
+    # served at the config's dtype, as the JAX evaluation serves
+    assert cfg.tpu.compute_dtype == "bfloat16" and cfg.model.k_num == 96
     result = main(cfg, device="cpu")
     assert set(result) == {"mean", "scenes"}
     assert sorted(result["scenes"]) == ["synthetic_0", "synthetic_1"]

@@ -170,7 +170,7 @@ def test_evaluation_main_2dgs_matches_jax(tmp_path, monkeypatch):
     monkeypatch.setattr(teval, "Network", t_network)
     monkeypatch.setattr(tnet, "compute_neighbor_idx",
                         _jax_neighbor_table(tnet.compute_neighbor_idx))
-    cfg = teval.config_from_args(over)
+    cfg = teval.config_from_args(over + ["tpu.compute_dtype=float32"])
     assert cfg.tpu.renderer == "2dgs"
     tres = teval.main(cfg, device="cpu")
     assert set(tres) == set(jres) == {"mean", "scenes"}

@@ -213,17 +213,25 @@ def test_coarse_network_matches_jax():
 
 
 def test_unported_paths_raise():
-    """The paths not ported yet raise and name their ROADMAP items: the bf16
-    policy and evaluation with finetuning (``with_ft``).  The isolated
-    selection closure (``share_selection=False``) and the 2DGS renderer are
-    ported and build (``tests/test_torch_train_select*.py`` and
-    ``tests/test_torch_fine_2dgs.py`` run them)."""
+    """The paths not ported yet raise and name their ROADMAP items:
+    evaluation with finetuning (``with_ft``).  The bf16 compute policy, the
+    isolated selection closure (``share_selection=False``) and the 2DGS
+    renderer are ported and build (``tests/test_torch_bf16.py``,
+    ``tests/test_torch_train_select*.py`` and ``tests/test_torch_fine_2dgs.py``
+    run them): under bf16 the ViT tokens leave the f32 final LayerNorm and
+    the coarse Gaussians the f32 heads."""
     from generativedensification_torch.eval.evaluation import config_from_args, main
 
     net = tnet.Network(tnet.NetworkConfig(**TINY, share_selection=False), device="cpu")
     assert not net.cfg.share_selection
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 5"):
-        tnet.Network(tnet.NetworkConfig(**TINY, compute_dtype="bfloat16"), device="cpu")
+    bf = tnet.Network(tnet.NetworkConfig(**TINY, compute_dtype="bfloat16"), device="cpu")
+    assert bf.cfg.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in bf.parameters())
+    with torch.inference_mode():
+        out = bf(t_probe(1, 4, 64, 64, 2, seed=0, device="cpu"))
+    assert out["image"].dtype == torch.float32
+    assert all(t.dtype == torch.float32 for t in out["render_pkg"][0])
+    assert torch.isfinite(out["image"]).all()
     assert tnet.Network(tnet.NetworkConfig(**TINY, renderer="2dgs"),
                         device="cpu").cfg.renderer == "2dgs"
     cfg = config_from_args(["infer.finetuning.with_ft=True",
