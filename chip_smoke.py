@@ -112,7 +112,16 @@ Drives ``generativedensification_torch`` only (no JAX):
    save and restore seconds (``cli_phase``);
 9. evaluation phase: ``eval.evaluation.main`` on 2 ``synthetic`` scenes at
    512² with seeded weights, with each renderer (3DGS at the config's
-   bf16, 2DGS in f32);
+   bf16, 2DGS in f32); then ``main`` on one scene at bf16 with every side
+   output (``eval_phase``): a full-width reference ``.ckpt`` synthesized by
+   ``utils/torch_convert.py`` (every key consumed, every parameter filled),
+   per-scene finetuning at the config's 500 steps (exactly 4 launches of
+   kernel #1 and 4 of kernel #2 ``noabs`` per step, the step's ms, the
+   source-view MSE before and after), the 24-frame orbit video, the TSDF
+   mesh from 48 RGB-D renders and its 4-frame turntable, LPIPS from seeded
+   random weights; kernel #2 ``noabs`` against its plain version on a
+   finetune step's inputs (scaled 5e-5) and #1 bitwise on a video frame's;
+   the phase's seconds and peak memory;
 10. the tiny configuration with the fine stage on the card and on the CPU
    from the same seeded weights, with each renderer: Gaussians, selection
    scores and selected index sets agree, images agree but for isolated
@@ -1494,6 +1503,288 @@ def cli_phase() -> dict:
     return rec
 
 
+# the full-width evaluation run: finetuning at the config's 500 steps, the
+# orbit video, the mesh and its turntable, LPIPS, a reference checkpoint
+EVAL_FT_STEPS = 500
+EVAL_VIDEO_FRAMES = 24
+EVAL_MESH_FRAMES = 4
+MESH_VIEWS = 3 * 16          # uni_mesh_path(16): three elevation rings
+
+
+def eval_phase() -> dict:
+    """``eval.evaluation.main`` on one ``synthetic`` 512² scene at the infer
+    configuration's dtype (bf16) with every side output: a full-width
+    reference checkpoint synthesized by ``utils/torch_convert.py`` and
+    written as a ``.ckpt`` (every source key consumed, every parameter
+    filled), per-scene finetuning (``EVAL_FT_STEPS`` Adam steps on the
+    331,744 fine Gaussians in the 4 source views: each step exactly 4
+    launches of kernel #1 and 4 of kernel #2, all ``noabs``, its ms by the
+    host clock with synchronize, the source-view MSE before and after, the
+    overflow), the orbit video (``EVAL_VIDEO_FRAMES`` frames, one #1 launch
+    each), the TSDF mesh (``MESH_VIEWS`` RGB-D renders, one #1 launch each;
+    seconds for render + fusion and for extraction, vertex and face counts)
+    and its turntable, LPIPS (seeded random weights for both backbones
+    through ``LPIPS_WEIGHTS_NPZ``; ms per image pair).  Then kernel #2
+    ``noabs`` against its plain version on one finetune step's own inputs
+    (scaled 5e-5 per row) and kernel #1 bitwise its plain version on one
+    video frame's inputs.  Everything is written to a temporary directory,
+    deleted at the end."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from generativedensification_torch.eval import evaluation
+    from generativedensification_torch.eval import finetune as ft
+    from generativedensification_torch.models.network import NetworkConfig
+    from generativedensification_torch.splat import composite, kernels
+    from generativedensification_torch.tools import mesh_extractor, mesh_render, scenes
+    from generativedensification_torch.tools.convert_lpips import random_weights
+    from generativedensification_torch.tools.timing import cuda_ms
+    from generativedensification_torch.utils import torch_convert
+    from generativedensification_torch.utils.image_io import read_png
+
+    tmp = tempfile.mkdtemp(prefix="gd_eval_")
+    t_setup = time.perf_counter()
+    for net in ("vgg", "alex"):
+        np.savez(f"{tmp}/lpips_{net}.npz", **random_weights(net, seed=0))
+    env0 = os.environ.get("LPIPS_WEIGHTS_NPZ")
+    os.environ["LPIPS_WEIGHTS_NPZ"] = tmp + "/lpips_{net}.npz"
+    cfg = scenes.fine_config(**{
+        "tpu.compute_dtype": "bfloat16", "infer.dataset.dataset_name": "synthetic",
+        "infer.dataset.n_scenes": 1, "infer.finetuning.with_ft": True,
+        "infer.finetuning.steps": EVAL_FT_STEPS, "infer.video_frames": EVAL_VIDEO_FRAMES,
+        "infer.save_mesh": True, "infer.mesh_video_frames": EVAL_MESH_FRAMES,
+        "infer.eval_lpips": True, "infer.ckpt_path": f"{tmp}/ref.ckpt",
+        "infer.save_folder": f"{tmp}/out"})
+    sd = torch_convert.synthesize_reference_state_dict(NetworkConfig.from_config(cfg))
+    torch.save({"state_dict": {k: torch.from_numpy(v) for k, v in sd.items()}},
+               f"{tmp}/ref.ckpt")
+    ckpt_bytes = os.path.getsize(f"{tmp}/ref.ckpt")
+    del sd
+    setup_s = time.perf_counter() - t_setup
+
+    rec = dict(ft_ms=[], ft_launches=[], ft_loss=[], ft_overflow=[], bwd_modes=[],
+               lpips_ms=[], mse=None, report={}, captured={}, secs={}, launches={},
+               mesh=None)
+    real = dict(convert=torch_convert.convert_state_dict, ft_step=ft.ft_step,
+                finetune_scene=evaluation.finetune_scene, lpips_fn=evaluation.lpips_fn,
+                save_video=evaluation._save_video, save_mesh=evaluation._save_mesh,
+                fuse=mesh_extractor.MeshExtractor.fuse,
+                extract_mesh=mesh_extractor.TSDFVolume.extract_mesh,
+                save_obj=mesh_extractor.save_obj, turntable=mesh_render.turntable_frames,
+                fwd=composite.composite_fwd, bwd=composite.composite_bwd)
+    capture = {"fwd": False, "bwd": False, "in_step": False}
+
+    def convert(sd, net, report=None):
+        return real["convert"](sd, net, rec["report"])
+
+    def fwd(*a):
+        if capture["fwd"]:
+            rec["captured"]["fwd"] = a
+            capture["fwd"] = False
+        return real["fwd"](*a)
+
+    def bwd(table, ids, starts, counts, gc4, g2, tiles_x, tiles_y, ts, mode="full"):
+        a = (table, ids, starts, counts, gc4, g2, tiles_x, tiles_y, ts)
+        if capture["in_step"]:
+            rec["bwd_modes"].append(mode)
+        if capture["bwd"]:
+            rec["captured"]["bwd"] = (a, mode)
+            capture["bwd"] = False
+        return real["bwd"](*a, mode=mode)
+
+    def ft_step(*a, **k):
+        capture["bwd"] = len(rec["ft_ms"]) == 1            # the second step's
+        capture["in_step"] = True
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, overflow = real["ft_step"](*a, **k)
+        torch.cuda.synchronize()
+        capture["in_step"] = False
+        rec["ft_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["ft_launches"].append(dict(kernels.launch_counts))
+        rec["ft_loss"].append(float(loss))
+        rec["ft_overflow"].append(int(overflow))
+        return loss, overflow
+
+    def finetune_scene(out, batch, net_cfg, ft_cfg, n_views):
+        t0 = time.perf_counter()
+        image_fine, pkg = real["finetune_scene"](out, batch, net_cfg, ft_cfg, n_views)
+        torch.cuda.synchronize()
+        rec["secs"]["finetune"] = time.perf_counter() - t0
+        B, V, H, W, _ = batch["tar_rgb"].shape
+        gt = batch["tar_rgb"].permute(0, 2, 1, 3, 4).reshape(1, H, V * W, 3)
+        src = slice(0, W * n_views)
+        mse = lambda img: float(torch.mean((img[:, :, src] - gt[:, :, src]) ** 2))
+        rec["mse"] = (mse(out["image_fine"]), mse(image_fine))
+        return image_fine, pkg
+
+    def lpips_fn(*a, **k):
+        fn = real["lpips_fn"](*a, **k)
+
+        def timed(x, y):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            d = fn(x, y)
+            torch.cuda.synchronize()
+            rec["lpips_ms"].append((time.perf_counter() - t0) * 1e3)
+            return d
+        return timed
+
+    def counted(key, fn, first_fwd=False):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            capture["fwd"] = first_fwd
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            rec["secs"][key] = time.perf_counter() - t0
+            rec["launches"][key] = dict(kernels.launch_counts)
+            return out
+        return run
+
+    def timed(key, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            rec["secs"][key] = rec["secs"].get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    def save_obj(path, verts, faces, colors=None):
+        rec["mesh"] = dict(vertices=len(verts), faces=len(faces),
+                           finite=bool(np.isfinite(verts).all()))
+        return timed("mesh_obj_write", real["save_obj"])(path, verts, faces, colors)
+
+    torch_convert.convert_state_dict = convert
+    ft.ft_step = ft_step
+    evaluation.finetune_scene = finetune_scene
+    evaluation.lpips_fn = lpips_fn
+    evaluation._save_video = counted("video", real["save_video"], first_fwd=True)
+    evaluation._save_mesh = counted("mesh", real["save_mesh"])
+    mesh_extractor.MeshExtractor.fuse = timed("mesh_render_fuse", real["fuse"])
+    mesh_extractor.TSDFVolume.extract_mesh = timed("mesh_extract", real["extract_mesh"])
+    mesh_extractor.save_obj = save_obj
+    mesh_render.turntable_frames = timed("mesh_turntable", real["turntable"])
+    composite.composite_fwd = fwd
+    composite.composite_bwd = bwd
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = evaluation.main(cfg)
+        torch.cuda.synchronize()
+        phase_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        torch_convert.convert_state_dict = real["convert"]
+        ft.ft_step = real["ft_step"]
+        evaluation.finetune_scene = real["finetune_scene"]
+        evaluation.lpips_fn = real["lpips_fn"]
+        evaluation._save_video = real["save_video"]
+        evaluation._save_mesh = real["save_mesh"]
+        mesh_extractor.MeshExtractor.fuse = real["fuse"]
+        mesh_extractor.TSDFVolume.extract_mesh = real["extract_mesh"]
+        mesh_extractor.save_obj = real["save_obj"]
+        mesh_render.turntable_frames = real["turntable"]
+        composite.composite_fwd = real["fwd"]
+        composite.composite_bwd = real["bwd"]
+        if env0 is None:
+            os.environ.pop("LPIPS_WEIGHTS_NPZ", None)
+        else:
+            os.environ["LPIPS_WEIGHTS_NPZ"] = env0
+
+    # -- what the run must have done
+    report = rec["report"]
+    if not report or report["unconsumed"] or report["unfilled"]:
+        fail(f"eval: the synthesized reference checkpoint did not load fully: "
+             f"unconsumed {report.get('unconsumed')}, unfilled {report.get('unfilled')}")
+    expect_step = expect_launches(kernels, composite_fwd=N_VIEWS, composite_bwd=N_VIEWS)
+    if len(rec["ft_ms"]) != EVAL_FT_STEPS:
+        fail(f"eval: {len(rec['ft_ms'])} finetune steps, expected {EVAL_FT_STEPS}")
+    bad = [i for i, l in enumerate(rec["ft_launches"]) if l != expect_step]
+    if bad:
+        fail(f"eval: finetune steps {bad[:5]} launched {rec['ft_launches'][bad[0]]}, "
+             f"expected {expect_step}")
+    modes = set(rec["bwd_modes"])
+    if modes != {"noabs"} or len(rec["bwd_modes"]) != N_VIEWS * EVAL_FT_STEPS:
+        fail(f"eval: the finetune backward ran kernel #2 in modes {modes}, "
+             f"{len(rec['bwd_modes'])} times")
+    mse0, mse1 = rec["mse"]
+    if not mse1 < mse0:
+        fail(f"eval: finetuning did not lower the source-view MSE ({mse0} -> {mse1})")
+    for key, n in (("video", EVAL_VIDEO_FRAMES), ("mesh", MESH_VIEWS)):
+        if rec["launches"][key] != expect_launches(kernels, composite_fwd=n):
+            fail(f"eval: the {key} launched {rec['launches'][key]}, expected {n} #1")
+    scene = next(iter(result["scenes"]))
+    keys = {"psnr", "psnr_coarse", "psnr_fine", "ssim", "lpips_vgg", "lpips_alex"}
+    if set(result["mean"]) != keys or not all(np.isfinite(v) for v in result["mean"].values()):
+        fail(f"eval: metrics malformed: {result}")
+    files = sorted(os.listdir(f"{tmp}/out"))
+    expect_files = sorted([f"{scene}.png", f"{scene}.obj"]
+                          + [f"{scene}_f{j:03d}.png" for j in range(EVAL_VIDEO_FRAMES)]
+                          + [f"{scene}_mesh{j:03d}.png" for j in range(EVAL_MESH_FRAMES)])
+    if files != expect_files:
+        fail(f"eval: wrote {files}, expected {expect_files}")
+    frame = read_png(f"{tmp}/out/{scene}_f000.png")
+    if frame.shape != (HW, HW, 3) or not rec["mesh"]["faces"] or not rec["mesh"]["finite"]:
+        fail(f"eval: video frame {frame.shape} or mesh {rec['mesh']} malformed")
+
+    # -- kernel #2 noabs on a finetune step's inputs; #1 on a video frame's
+    (bargs, mode) = rec["captured"]["bwd"]
+    k1 = kernels.composite_bwd(*bargs, mode=mode)
+    k2 = kernels.composite_bwd(*bargs, mode=mode)
+    ref = kernels.composite_bwd_plain(*bargs, mode=mode)
+    torch.cuda.synchronize()
+    scale = ref.abs().amax(dim=0).clamp(min=1e-30)
+    bwd_err = float(((k1 - ref) / scale).abs().max())
+    if mode != "noabs" or bwd_err > GRAD_ATOL or not torch.equal(k1, k2):
+        fail(f"eval: kernel #2 {mode} on finetune inputs: scaled err {bwd_err} "
+             f"(tolerance {GRAD_ATOL}), repeatable {torch.equal(k1, k2)}")
+    bwd_ms = cuda_ms(lambda: kernels.composite_bwd(*bargs, mode=mode), reps=21)
+    fargs = rec["captured"]["fwd"]
+    out = kernels.composite_fwd(*fargs)
+    plain = kernels.composite_fwd_plain(*fargs)
+    if not torch.equal(out, plain):
+        fail(f"eval: kernel #1 differs from its plain version on a video frame "
+             f"(max |diff| {float((out - plain).abs().max())})")
+    fwd_ms = cuda_ms(lambda: kernels.composite_fwd(*fargs), reps=21)
+    shutil.rmtree(tmp)
+
+    summary = dict(
+        scene=scene, metrics=result["mean"], phase_s=phase_s, setup_s=setup_s,
+        ckpt_bytes=ckpt_bytes, checkpoint_filled=len(report["filled"]),
+        peak_bytes=peak, ft_steps=EVAL_FT_STEPS,
+        ft_ms_median=statistics.median(rec["ft_ms"]),
+        ft_ms_first=rec["ft_ms"][:3], ft_s=rec["secs"]["finetune"],
+        ft_launches_per_step=rec["ft_launches"][0], ft_bwd_modes=sorted(modes),
+        mse_before=mse0, mse_after=mse1, ft_loss_first=rec["ft_loss"][0],
+        ft_loss_last=rec["ft_loss"][-1], ft_overflow_max=max(rec["ft_overflow"]),
+        video_s=rec["secs"]["video"], video_frames=EVAL_VIDEO_FRAMES,
+        video_launches=rec["launches"]["video"]["composite_fwd"],
+        mesh_s=rec["secs"]["mesh"], mesh_render_fuse_s=rec["secs"]["mesh_render_fuse"],
+        mesh_extract_s=rec["secs"]["mesh_extract"],
+        mesh_obj_write_s=rec["secs"]["mesh_obj_write"],
+        mesh_turntable_s=rec["secs"].get("mesh_turntable"),
+        mesh_launches=rec["launches"]["mesh"]["composite_fwd"], **rec["mesh"],
+        lpips_ms=rec["lpips_ms"],
+        bwd_noabs_on_ft=dict(max_scaled_err=bwd_err, ms=bwd_ms, bitwise_repeatable=True),
+        fwd_on_video=dict(bitwise=True, ms=fwd_ms))
+    print(f"[eval full] one synthetic scene at {HW}², bf16, reference .ckpt "
+          f"({ckpt_bytes / 2**20:.0f} MiB, {len(report['filled'])} parameters filled, "
+          f"every key consumed), {EVAL_FT_STEPS} finetune steps (the config's), "
+          f"{EVAL_VIDEO_FRAMES} video frames, mesh + {EVAL_MESH_FRAMES} turntable "
+          f"frames, LPIPS: {phase_s:.1f}s, peak {peak / 2**30:.2f} GiB; "
+          f"{json.dumps(summary)}")
+    return summary
+
+
 def expect_launches(kernels, **launches):
     """Launches per call: the given kernels, every other one 0."""
     return {**dict.fromkeys(kernels.launch_counts, 0), **launches}
@@ -1772,6 +2063,10 @@ def main() -> int:
               f"{eval_s:.1f}s: {json.dumps(means)}")
         evals[renderer] = {"seconds": eval_s, "mean": means, "dtype": dtype}
 
+    # -- 9b. the full-width evaluation with every side output: a reference
+    # checkpoint, finetuning on kernels #1 / #2, the video, the mesh, LPIPS
+    eval_full = eval_phase()
+
     # -- 10. the tiny configuration, card vs CPU, each renderer
     with torch.inference_mode():
         # seeds whose selection margins are >= 100x the score tolerance on
@@ -1898,7 +2193,8 @@ def main() -> int:
                          "busy_ms": busy_s["busy_ms"],
                          "busy_wall_ms": busy_s["wall_ms"], "overflow": ov_surfel,
                          "peak_bytes": peak_s},
-        "train": train, "bf16": bf16, "cli": cli, "eval": evals, "tiny": tiny,
+        "train": train, "bf16": bf16, "cli": cli, "eval": evals,
+        "eval_full": eval_full, "tiny": tiny,
         "pyyaml": has_yaml,
         "scenes": [bench_rec, model_rec, warm_rec],
         "composite_bwd": {"A": bwd_recs_a, "B": bwd_recs, "B_warmup": bwd_recs_warm},

@@ -45,3 +45,31 @@ def covariance_to_symm6(cov: torch.Tensor) -> torch.Tensor:
          cov[..., 1, 1], cov[..., 1, 2], cov[..., 2, 2]],
         dim=-1,
     )
+
+
+def rotmat_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) rotation -> (..., 4) wxyz quaternion (branch-free).
+
+    The four-hypothesis construction: each candidate is the quaternion
+    scaled by one of its components, and the one whose squared norm
+    (1 + trace, 1 + 2·R_ii − trace) is largest is the best conditioned."""
+    m = R
+    diag = torch.stack([m[..., 0, 0], m[..., 1, 1], m[..., 2, 2]], dim=-1)
+    t = diag.sum(-1)
+    q0 = torch.stack([1.0 + t, m[..., 2, 1] - m[..., 1, 2],
+                      m[..., 0, 2] - m[..., 2, 0], m[..., 1, 0] - m[..., 0, 1]], dim=-1)
+    q1 = torch.stack([m[..., 2, 1] - m[..., 1, 2],
+                      1.0 + diag[..., 0] - diag[..., 1] - diag[..., 2],
+                      m[..., 0, 1] + m[..., 1, 0], m[..., 0, 2] + m[..., 2, 0]], dim=-1)
+    q2 = torch.stack([m[..., 0, 2] - m[..., 2, 0], m[..., 0, 1] + m[..., 1, 0],
+                      1.0 + diag[..., 1] - diag[..., 0] - diag[..., 2],
+                      m[..., 1, 2] + m[..., 2, 1]], dim=-1)
+    q3 = torch.stack([m[..., 1, 0] - m[..., 0, 1], m[..., 0, 2] + m[..., 2, 0],
+                      m[..., 1, 2] + m[..., 2, 1],
+                      1.0 + diag[..., 2] - diag[..., 0] - diag[..., 1]], dim=-1)
+    cands = torch.stack([q0, q1, q2, q3], dim=-2)                 # (..., 4, 4)
+    norms2 = torch.stack([1.0 + t, 1.0 + 2 * diag[..., 0] - t,
+                          1.0 + 2 * diag[..., 1] - t, 1.0 + 2 * diag[..., 2] - t], dim=-1)
+    best = torch.argmax(norms2, dim=-1)
+    idx = best[..., None, None].expand(*best.shape, 1, 4)
+    return normalize_quat(torch.gather(cands, -2, idx)[..., 0, :])

@@ -77,6 +77,20 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, step: int) -> None:
     os.replace(path + ".tmp", path)
 
 
+def save_params(ckpt_dir: str, params: dict, step: int = 0) -> str:
+    """Write a parameters-only checkpoint ``{ckpt_dir}/{step}/state.pt``
+    (``{"step", "params"}``) that ``restore_params`` reads: a converted
+    reference checkpoint (``tools/convert_torch_ckpt.py``) has no optimizer.
+    Returns the file's path."""
+    path = _step_file(ckpt_dir, step)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    blob = {"step": int(step),
+            "params": {k: v.detach().cpu() for k, v in params.items()}}
+    torch.save(blob, path + ".tmp")
+    os.replace(path + ".tmp", path)
+    return path
+
+
 def _load(ckpt_dir: str, step: int | None) -> dict:
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:

@@ -302,7 +302,7 @@ def test_synthetic_dataset_matches_jax(monkeypatch):
     assert dataset_dict["GSO"] is GSODataset
 
 
-def test_evaluation_main_schema(tmp_path):
+def test_evaluation_main_schema(tmp_path, monkeypatch):
     """The port's ``main`` on 2 synthetic scenes at 64²: the JSON keys of
     the JAX ``main`` (``tests/test_eval.py`` asserts the same), finite
     values, and the metric file."""
@@ -328,9 +328,13 @@ def test_evaluation_main_schema(tmp_path):
         assert rec["psnr"] == max(rec["psnr_coarse"], rec["psnr_fine"])
     with open(tmp_path / "metrics.json") as f:
         assert json.load(f) == result
-    assert (tmp_path / "synthetic_0.ppm").exists()
-    for bad in ("infer.video_frames=2", "infer.save_mesh=True",
-                "infer.finetuning.with_ft=True", "infer.ckpt_path=model.pt",
-                "infer.eval_lpips=True"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            main(config_from_args(over + [bad]), device="cpu")
+    assert (tmp_path / "synthetic_0.png").exists()
+    # finetuning, the video, the mesh and LPIPS run (tests/test_torch_eval.py);
+    # a reference checkpoint that is not there and LPIPS without weights
+    # raise, as in the JAX evaluation
+    with pytest.raises(FileNotFoundError):
+        main(config_from_args(over + [f"infer.ckpt_path={tmp_path}/model.pt"]),
+             device="cpu")
+    monkeypatch.delenv("LPIPS_WEIGHTS_NPZ", raising=False)
+    with pytest.raises(NotImplementedError, match="LPIPS_WEIGHTS_NPZ"):
+        main(config_from_args(over + ["infer.eval_lpips=True"]), device="cpu")
