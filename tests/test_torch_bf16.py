@@ -290,23 +290,27 @@ def test_block_bf16():
 FWD_KEYS = ("image", "depth", "image_fine", "depth_fine")
 
 
-def test_whole_network_forward_bf16(monkeypatch):
+@pytest.mark.parametrize("residual", [False, True], ids=["base", "residual"])
+def test_whole_network_forward_bf16(residual, monkeypatch):
     """``Network.forward(with_fine=True)`` at the tiny configuration of
     ``tests/test_torch_fine.py`` in both dtypes and both packages: the
-    coarse and fine images and depths."""
+    coarse and fine images and depths; in base and in residual attribute
+    mode (the evaluation of a residual checkpoint runs at the config's
+    bf16)."""
     jb = j_probe(1, 4, 64, 64, 2, seed=0)
+    cfg = dict(FINE, enable_residual_attribute=residual)
     p = None
     monkeypatch.setattr(tnet, "compute_neighbor_idx",
                         _jax_neighbor_table(tnet.compute_neighbor_idx))
     outs, scores = {}, {}
     for name, (jd, td) in (("f32", ("float32", torch.float32)),
                            ("bf16", ("bfloat16", torch.bfloat16))):
-        jn = jnet.Network(jnet.NetworkConfig(**FINE, drop_path=0.0, backend="xla",
+        jn = jnet.Network(jnet.NetworkConfig(**cfg, drop_path=0.0, backend="xla",
                                              raster_chunk=16, compute_dtype=jd))
         if p is None:
             p = _jax_params(jn, jb, 5)
         jo = jax.jit(lambda p, b: jn.apply(p, b, with_fine=True))(p, jb)
-        tn = tnet.Network(tnet.NetworkConfig(**FINE, compute_dtype=jd), device="cpu")
+        tn = tnet.Network(tnet.NetworkConfig(**cfg, compute_dtype=jd), device="cpu")
         tn.load_flax_params(p)
         splits = []
         real_split = tnet.topk_split

@@ -113,13 +113,17 @@ def test_finetune_scene_lowers_source_mse():
         assert a.shape == b.shape and a.dtype == torch.float32
 
 
-def test_evaluation_cli_with_every_side_output(tmp_path, monkeypatch):
+@pytest.mark.parametrize("mode", [[], ["model.enable_residual_attribute=True"]],
+                         ids=["base", "residual"])
+def test_evaluation_cli_with_every_side_output(mode, tmp_path, monkeypatch):
     """``main`` with a synthesized reference ``.ckpt``, finetuning (5
     steps), a 2-frame video, the mesh with a 1-frame turntable and LPIPS
     from seeded random weights: JAX's metric keys plus ``lpips_vgg`` /
     ``lpips_alex``, all finite; the comparison image, the video frames, the
     .obj and the turntable frame written; the comparison PNG's pixels are
-    the uint8 array of ground truth, coarse and fine stacked."""
+    the uint8 array of ground truth, coarse and fine stacked.  In base and
+    in residual attribute mode (the reference's ``epoch=49_residual.ckpt``
+    layout: every key consumed, every parameter filled)."""
     from generativedensification_torch.models.network import NetworkConfig
     from generativedensification_torch.utils.torch_convert import (
         synthesize_reference_state_dict,
@@ -129,7 +133,7 @@ def test_evaluation_cli_with_every_side_output(tmp_path, monkeypatch):
         np.savez(tmp_path / f"lpips_{net}.npz", **random_weights(net, seed=1))
     monkeypatch.setenv("LPIPS_WEIGHTS_NPZ", str(tmp_path / "lpips_{net}.npz"))
     sd = synthesize_reference_state_dict(
-        NetworkConfig.from_config(teval.config_from_args(TINY)), seed=3)
+        NetworkConfig.from_config(teval.config_from_args(TINY + mode)), seed=3)
     ckpt = tmp_path / "ref.ckpt"
     torch.save({"state_dict": {k: torch.from_numpy(v) for k, v in sd.items()}}, ckpt)
     saved = {}
@@ -143,12 +147,20 @@ def test_evaluation_cli_with_every_side_output(tmp_path, monkeypatch):
                         real_step(*a, **k))
 
     out_dir = tmp_path / "out"
-    cfg = teval.config_from_args(TINY + SYNTH + [
+    reports = []
+    from generativedensification_torch.utils import torch_convert
+    real_convert = torch_convert.convert_state_dict
+    monkeypatch.setattr(torch_convert, "convert_state_dict", lambda sd, net, report=None:
+                        real_convert(sd, net, reports.append({}) or reports[-1]))
+    cfg = teval.config_from_args(TINY + mode + SYNTH + [
         "infer.finetuning.with_ft=True", "infer.finetuning.steps=5",
         "infer.video_frames=2", "infer.save_mesh=True", "infer.mesh_video_frames=1",
         "infer.eval_lpips=True", f"infer.ckpt_path={ckpt}", f"infer.save_folder={out_dir}",
         f"infer.metric_path={out_dir}/metrics.json", "infer.save_images=1"])
     result = teval.main(cfg, device="cpu")
+    assert cfg.model.enable_residual_attribute == bool(mode)
+    (report,) = reports
+    assert report["filled"] and not report["unconsumed"] and not report["unfilled"]
     keys = {"psnr", "psnr_coarse", "psnr_fine", "ssim", "lpips_vgg", "lpips_alex"}
     assert set(result) == {"mean", "scenes"} and set(result["mean"]) == keys
     rec = result["scenes"]["synthetic_0"]

@@ -70,12 +70,15 @@ def test_warm_and_tight_variants_share_parameters():
     assert cli.warmup_budgets(surfel)["max_per_tile"] == 16384
 
 
-def test_main_trains_validates_and_resumes(tmp_path, monkeypatch):
+@pytest.mark.parametrize("mode", [[], ["model.enable_residual_attribute=True"]],
+                         ids=["base", "residual"])
+def test_main_trains_validates_and_resumes(mode, tmp_path, monkeypatch):
     """``main`` for one epoch of 4 micro-steps (2 optimizer updates) at the
     defaults, scalars logged every 2 micro-steps; then a ``main`` with
     ``model.ckpt_path`` and no epochs restores the checkpoint, the
     evaluation serves it (``infer.ckpt_path``), and one more epoch
-    continues from its step (NaN guard on, one micro-step profiled)."""
+    continues from its step (NaN guard on, one micro-step profiled).  In
+    base and in residual attribute mode."""
     monkeypatch.setattr(cli, "LOG_EVERY", 2)
     logs = []
     real_log = cli.ScalarLog
@@ -85,13 +88,14 @@ def test_main_trains_validates_and_resumes(tmp_path, monkeypatch):
         return logs[-1]
 
     monkeypatch.setattr(cli, "ScalarLog", capture)
-    cfg = load_config(overrides=_overrides(tmp_path))
+    cfg = load_config(overrides=_overrides(tmp_path, *mode))
     assert cfg.tpu.compute_dtype == "bfloat16" and cfg.train.accumulate_grad_batches == 2
     kernels.reset_launch_counts()
     state = cli.main(cfg, device="cpu")
     assert not any(kernels.launch_counts.values())   # CPU: no launch
     assert state.step == SCENES and state.optimizer.count == 2
     assert state.net.cfg.dtype == torch.bfloat16
+    assert state.net.cfg.enable_residual_attribute == bool(mode)
     train = [s for p, _, s in logs[0].history if p == "train"]
     val = [s for p, _, s in logs[0].history if p == "val"]
     assert [st for p, st, _ in logs[0].history if p == "train"] == [2, 4]
@@ -102,7 +106,7 @@ def test_main_trains_validates_and_resumes(tmp_path, monkeypatch):
     assert latest_step(str(ckpt)) == SCENES
 
     resumed = cli.main(load_config(overrides=_overrides(
-        tmp_path, f"model.ckpt_path={ckpt}", "train.n_epoch=0")), device="cpu")
+        tmp_path, *mode, f"model.ckpt_path={ckpt}", "train.n_epoch=0")), device="cpu")
     assert resumed.step == SCENES and resumed.optimizer.count == 2
     for (k, a), b in zip(state.net.named_parameters(), resumed.net.parameters()):
         assert torch.equal(a, b), k
@@ -113,7 +117,7 @@ def test_main_trains_validates_and_resumes(tmp_path, monkeypatch):
     real_net = teval.Network
     monkeypatch.setattr(teval, "Network", lambda *a, **k: nets.append(
         real_net(*a, **k)) or nets[-1])
-    res = teval.main(teval.config_from_args(TINY + [
+    res = teval.main(teval.config_from_args(TINY + mode + [
         "infer.dataset.dataset_name=synthetic", "infer.dataset.n_scenes=1",
         "infer.dataset.img_size=[64,64]", "infer.dataset.n_group=2",
         "infer.save_images=0", f"infer.save_folder={tmp_path / 'eval'}",
@@ -126,7 +130,7 @@ def test_main_trains_validates_and_resumes(tmp_path, monkeypatch):
     # profiler tracing micro-step 5
     monkeypatch.setattr(cli, "PROFILE_STEP", SCENES + 1)
     more = cli.main(load_config(overrides=_overrides(
-        tmp_path, f"model.ckpt_path={ckpt}", "exp_name=more", "tpu.nan_check=true",
+        tmp_path, *mode, f"model.ckpt_path={ckpt}", "exp_name=more", "tpu.nan_check=true",
         f"tpu.profile_dir={tmp_path / 'trace'}")), device="cpu")
     assert more.step == 2 * SCENES and more.optimizer.count == 4
     assert latest_step(str(tmp_path / "more" / "ckpts")) == 2 * SCENES
