@@ -9,38 +9,38 @@ Drives ``generativedensification_torch`` only (no JAX):
    CUDA versions and both TF32 flags;
 2. builds every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, all
    started together) and prints the build time and ``-Xptxas -v``
-   registers / shared memory; fails if kernel #1-#6 spills; then holds
+   registers / shared memory; fails if kernel #1-#6 or a stage probe
+   spills; then holds
    kernels #5 / #6 bit for bit against their plain versions at the train
    step's shapes and on edge cases (``tools/kernel_break.py``
    ``REDUCE_CASES`` / ``TRANSPOSE_CASES``: bases that are not 16 B
    aligned, ragged n and M, d = 1, widths outside the templated set and
    too wide for one tile of #6, NaN and +-inf);
 3. kernel #1 phase: holds the forward compositor bitwise
-   (``torch.equal``) against its plain PyTorch version and against the
-   one-CTA-per-tile design it replaced (probe ``full``) on the ``bench.py`` scene A (512², 131,072
-   Gaussians, seed 0), on the adversarial scene of the footprint skip
-   (``tools/scenes.py``, 256², 32 and 16 px tiles), and on the 262,144
-   coarse Gaussians of the full-width model (scene B, view 0) with the
+   (``torch.equal``) against its plain PyTorch version on the ``bench.py``
+   scene A (512², 131,072 Gaussians, seed 0), on the adversarial scene of
+   the footprint skip (``tools/scenes.py``, 256², 32 and 16 px tiles), and
+   on the 262,144 coarse Gaussians of the full-width model (scene B, view
+   0) with the
    serving budgets and with the 3DGS warmup budgets; prints the skip's kept
    share of (slot, sub-tile) pairs and the evaluations it leaves (from the
-   plain mirror ``kernels.subtile_touch``), and times the kernel, the
-   one-CTA-per-tile design and the plain version with CUDA events (median of >= 20 kernel
-   calls);
+   plain mirror ``kernels.subtile_touch``), and times the kernel and the
+   plain version with CUDA events (median of >= 20 kernel calls);
 4. kernel #2 phase: on the same scenes (scene B with the batch's view-0
    image as ground truth, a seeded image elsewhere), holds the compositing
    backward against its plain version in all three modes (each per-slot
    gradient array scaled by its max |value|, atol 5e-5), checks that two
    launches give bitwise the same output, and times each mode;
-4b. probe phase (kernels #1 and #3 by stage, TPU kernels #7-#10; #1's
-   ladder is its earlier one-CTA-per-tile design, and ``sub_noexit`` /
-   ``sub_noskip`` the production sub-tile kernel without its per-sub-tile
-   exit or its footprint skip): the
+4b. probe phase (kernels #1 and #3 by stage, TPU kernels #7-#10: every
+   variant an instantiation of the production sub-tile body): the
    breakdown entry points ``tools.kernel_break`` (every variant of
    ``probe_kernels.composite_fwd_probe``) on scenes A and B and
    ``tools.surfel_break`` (every surfel variant) on A' (the surfel form of
    scene A) and B', each variant bitwise against its plain version and,
    where its output is the production output, against the production
-   kernel, timed with CUDA events; the stage tables and trip counts; then
+   kernel (for #3 also the rows that ``trans`` / ``acc`` reach), timed
+   with CUDA events beside its bound, every variant and the production
+   kernel in the same 5 rounds; the stage tables and trip counts; then
    ``kernel_break --bwd`` (the compositor's backward path by stage) on
    scene A; every variant must launch (the counts set to 0 just before
    and read just after), and every later phase launches none;
@@ -63,13 +63,11 @@ Drives ``generativedensification_torch`` only (no JAX):
    form of scene A), on the adversarial scene of the screen-circle skip
    (``tools/scenes.py``, 256², 32 and 16 px tiles) and on scene B' (the
    model's 262,144 coarse surfels in view 0) at the serving and the 2DGS
-   warmup budgets; #3 also bitwise against the one-CTA-per-tile design it
-   replaced (probe ``full``) on A' and B'; the skip's kept shares (from
-   the plain mirror ``surfel_kernels.subtile_touch``), each kernel timed
-   with CUDA events beside the earlier design; then the full-width
-   serving forward with exactly 16 surfel-forward and 4 surfel-backward
-   launches (and no 3DGS launch), finite 2DGS maps, peak memory, overflow
-   and a device-time breakdown by stage;
+   warmup budgets; the skip's kept shares (from the plain mirror
+   ``surfel_kernels.subtile_touch``), each kernel timed with CUDA events;
+   then the full-width serving forward with exactly 16 surfel-forward and
+   4 surfel-backward launches (and no 3DGS launch), finite 2DGS maps, peak
+   memory, overflow and a device-time breakdown by stage;
 8. the f32 train phases, each renderer: the training configuration
    (``load_config()``: ``mask_pool`` 49,152, k 12,000, drop-path 0.3, order
    shuffling, accumulation 2) with the warmup budgets of
@@ -188,12 +186,10 @@ def kernel_record(name: str, args, overflow: int) -> dict:
     """Kernel #1 vs plain on one scene: bitwise agreement, the footprint
     skip's kept share (``kernels.subtile_touch``, the plain mirror of the
     kernel's predicate) and the evaluations it leaves, the kernel's time
-    beside the one-CTA-per-tile design's (probe ``full``, also bitwise) and the bound
-    from the evaluations the skip leaves."""
+    and the bound from the evaluations the skip leaves."""
     import torch
 
     from generativedensification_torch.splat import kernels
-    from generativedensification_torch.splat import probe_kernels as pk
     from generativedensification_torch.tools.timing import (
         OPS_PER_CONTRIB,
         OPS_PER_EVAL,
@@ -217,13 +213,7 @@ def kernel_record(name: str, args, overflow: int) -> dict:
         lambda: kernels.composite_fwd_plain(*args, stats=stats, touch=touch), True)
     if not torch.equal(mirrored, ref):
         fail(f"{name}: the plain version with the skip mirrored differs")
-    per_tile = pk.composite_fwd_probe("full", *args)
-    torch.cuda.synchronize()
-    if not torch.equal(per_tile, out):
-        fail(f"{name}: the one-CTA-per-tile design (probe full) differs "
-             "from kernel #1")
     ms = cuda_ms(lambda: kernels.composite_fwd(*args), reps=25)
-    per_tile_ms = cuda_ms(lambda: pk.composite_fwd_probe("full", *args), reps=25)
     n_tiles = tiles_x * tiles_y
     npix = ts * ts
     live = int(counts.sum())
@@ -235,7 +225,7 @@ def kernel_record(name: str, args, overflow: int) -> dict:
                evals_kept=stats["evals_kept"], contribs=stats["contribs"],
                kept_share=float(touch.sum()) / max(1, live * touch.shape[0]),
                evals_kept_share=stats["evals_kept"] / max(1, stats["evals"]),
-               ms=ms, per_tile_ms=per_tile_ms, plain_ms=plain_ms, max_abs_err=0.0,
+               ms=ms, plain_ms=plain_ms, max_abs_err=0.0,
                bitwise=True, alpha_mean=float(out[:, 4].mean()),
                bound_unskipped_ms=bound(n_bytes, ops_all)["bound_ms"],
                **bound(n_bytes, ops))
@@ -311,17 +301,14 @@ def bwd_records(name: str, args, gt=None) -> dict:
     return recs
 
 
-def surfel_fwd_record(name: str, args, si, per_tile: bool = False) -> dict:
+def surfel_fwd_record(name: str, args, si) -> dict:
     """Kernel #3 vs plain on one scene: bitwise agreement, the screen-circle
     skip's kept share of (slot, sub-tile) pairs and of circle tests
     (``surfel_kernels.subtile_touch``, the plain mirror of the kernel's
     predicate; the plain version with it mirrored also bitwise), times and
-    the bound from the circle tests the skip leaves; with ``per_tile``,
-    also bitwise against the one-CTA-per-tile design it replaced (probe
-    ``full``) and that design's time."""
+    the bound from the circle tests the skip leaves."""
     import torch
 
-    from generativedensification_torch.splat import probe_kernels as pk
     from generativedensification_torch.splat import surfel_kernels as sk
     from generativedensification_torch.tools.timing import (
         SURFEL_OPS_PER_CONTRIB,
@@ -349,15 +336,6 @@ def surfel_fwd_record(name: str, args, si, per_tile: bool = False) -> dict:
     if not torch.equal(mirrored, ref):
         fail(f"{name}: the plain surfel version with the skip mirrored differs")
     ms = cuda_ms(lambda: sk.surfel_fwd(*args), reps=25)
-    extra = {}
-    if per_tile:
-        probe = pk.surfel_fwd_probe("full", *args)
-        torch.cuda.synchronize()
-        if not torch.equal(probe, out):
-            fail(f"{name}: the one-CTA-per-tile design (probe full) differs "
-                 "from kernel #3")
-        extra["per_tile_ms"] = cuda_ms(lambda: pk.surfel_fwd_probe("full", *args),
-                                       reps=25)
     n_tiles, npix = tiles_x * tiles_y, ts * ts
     live = int(counts.sum())
     n_bytes = (table.numel() * 4 + live * 4 + 2 * n_tiles * 4 + 8
@@ -370,7 +348,7 @@ def surfel_fwd_record(name: str, args, si, per_tile: bool = False) -> dict:
                contribs=stats["contribs"],
                kept_share=float(touch.sum()) / max(1, live * touch.shape[0]),
                evals_kept_share=stats["evals_kept"] / max(1, stats["evals"]),
-               ms=ms, plain_ms=plain_ms, max_abs_err=0.0, bitwise=True, **extra,
+               ms=ms, plain_ms=plain_ms, max_abs_err=0.0, bitwise=True,
                alpha_mean=float(1.0 - out[:, 12].mean()),
                bound_unskipped_ms=bound(
                    n_bytes, stats["evals"] * SURFEL_OPS_PER_EVAL + rest)["bound_ms"],
@@ -2077,14 +2055,15 @@ def expect_launches(kernels, **launches):
 
 
 def probe_phase() -> dict:
-    """The stage probes of kernels #1 and #3 (TPU kernels #7-#10) through
-    their breakdown entry points, with the launch counts set to 0 just
-    before and read just after: every variant of ``tools.kernel_break`` on
-    scenes A and B and of ``tools.surfel_break`` on A′ and B′, each held
-    bitwise against its plain version and, where its output is the
-    production output, against the production kernel (the tools fail
-    otherwise); then ``kernel_break --bwd`` on scene A.  Fails unless every
-    variant launched."""
+    """The stage probes of kernels #1 and #3 (TPU kernels #7-#10, each an
+    instantiation of the production sub-tile body) through their breakdown
+    entry points, with the launch counts set to 0 just before and read just
+    after: every variant of ``tools.kernel_break`` on scenes A and B and of
+    ``tools.surfel_break`` on A′ and B′, each held bitwise against its plain
+    version and, where its output is the production output, against the
+    production kernel (the tools fail otherwise), timed in rounds with the
+    production kernel; then ``kernel_break --bwd`` on scene A.
+    Fails unless every variant launched."""
     from generativedensification_torch.splat import kernels
     from generativedensification_torch.splat import probe_kernels as pk
     from generativedensification_torch.tools import kernel_break, surfel_break
@@ -2099,7 +2078,8 @@ def probe_phase() -> dict:
         runs[f"3dgs_{scene}"] = kernel_break.run([*pk.COMPOSITE_VARIANTS,
                                                  "--scene", scene])
         print(f"[probes] surfel_break --scene {scene}")
-        runs[f"2dgs_{scene}"] = surfel_break.run(["--scene", scene])
+        runs[f"2dgs_{scene}"] = surfel_break.run([*pk.SURFEL_VARIANTS,
+                                                 "--scene", scene])
     print("[probes] kernel_break --bwd --scene A")
     runs["bwd_A"] = kernel_break.run(["--bwd", "--scene", "A"])
     launches = {f"{kind}:{v}": n for (kind, v), n in pk.variant_launches.items()}
@@ -2158,8 +2138,9 @@ def main() -> int:
         for line in lib.build_log.splitlines():
             if "registers" in line or "Compiling entry" in line or "spill" in line:
                 print(f"[build] {line.strip()}")
-    # the main-path kernels #1-#6 must not spill
-    for name in kernels.MAIN_KERNELS:
+    # no kernel may spill: #1-#6, nor a stage probe (it would time the
+    # spill, not its stage)
+    for name in libs:
         spills = [ln.strip() for ln in libs[name].build_log.splitlines()
                   if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads"
                   not in ln]
@@ -2274,20 +2255,19 @@ def main() -> int:
         # scene B': the model's 262,144 coarse surfels in view 0 (the shapes
         # the main path gives) at the serving and the 2DGS warmup budgets
         surfel_scenes, surfel_bwd = {}, {}
-        runs = [("surfels_256_20k", *scenes.surfel_scene(dev), None, False),
-                ("surfels_bench_512_131k", *scenes.surfel_bench_scene(dev), None,
-                 True)]
+        runs = [("surfels_256_20k", *scenes.surfel_scene(dev), None),
+                ("surfels_bench_512_131k", *scenes.surfel_bench_scene(dev), None)]
         runs += [(f"surfel_adversarial_256_ts{ts}",
-                  *scenes.surfel_adversarial_scene(dev, ts), None, False)
+                  *scenes.surfel_adversarial_scene(dev, ts), None)
                  for ts in (32, 16)]
         max_tiles, enum_tiles, max_per_tile = budgets_of("2dgs")
         for label, budgets in (("", ()), ("_warmup",
                                           (None, max_tiles, max_per_tile, enum_tiles))):
             sargs, si = scenes.model_surfels(out2["render_pkg"][0], cam, cfg2, *budgets)
             runs.append((f"model_512_262k_view0_surfels{label}", sargs, si,
-                         batch["tar_rgb"][0, 0], True))
-        for label, sargs, si, gt, per_tile in runs:
-            surfel_scenes[label] = surfel_fwd_record(label, sargs, si, per_tile)
+                         batch["tar_rgb"][0, 0]))
+        for label, sargs, si, gt in runs:
+            surfel_scenes[label] = surfel_fwd_record(label, sargs, si)
             surfel_bwd[label] = surfel_bwd_records(label, sargs, si, gt)
         del runs, sargs
         surfel_rec = surfel_scenes["model_512_262k_view0_surfels"]
@@ -2454,15 +2434,15 @@ def main() -> int:
             "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         })
-    # the probes, each with one variant at scene A / A′ (the others are in
-    # the breakdowns above) and its launches in the breakdown run
+    # the probes, each with one variant at scene B / B′ (the others are in
+    # the breakdowns above) and its launches in the breakdown runs
     for name, kind, variant, replaces in (
             ("composite_fwd_probe:trans", "3dgs", "trans", "dev_kernel_break.py:207"),
             ("composite_fwd_probe:full_bulk", "3dgs", "full_bulk",
              "dev_kernel_break.py:308"),
             ("composite_fwd_probe:tpb2", "3dgs", "tpb2", "dev_kernel_break.py:401"),
             ("surfel_fwd_probe:acc", "2dgs", "acc", "dev_surfel_break.py:206")):
-        r = next(x for x in probes["runs"][f"{kind}_A"]["stages"]
+        r = next(x for x in probes["runs"][f"{kind}_B"]["stages"]
                  if x["variant"] == variant)
         if kind == "2dgs":
             n = sum(v for k, v in probes["launches"].items() if k.startswith("surfel:"))

@@ -27,10 +27,10 @@
 // screen circle can reach one of the sub-tile's pixel centres, compacted in
 // segment order; pixels then walk the kept slots.  The circle test is the
 // first test of every pair and a pair that fails it changes nothing, so
-// the skip is exact: the output is bitwise that of the one-CTA-per-tile
-// body (surfel_fwd.cuh, kept for the stage probes of surfel_fwd_probe.cu)
-// and of the plain version.  The CTA leaves the segment once all its 256
-// pixels are done (__syncthreads_count, once per batch).
+// the skip is exact: the output is bitwise that of the unskipped walk and
+// of the plain version.  The CTA leaves the segment once all its 256 pixels
+// are done (__syncthreads_count, once per batch).  The stage probes of
+// surfel_fwd_probe.cu are instantiations of the same body.
 //
 // Bound on an H100.  The bytes are small (the table read once, the live ids,
 // the 13-row output: ~45 MB at 262,144 surfels in a 512^2 view, ~0.014 ms at

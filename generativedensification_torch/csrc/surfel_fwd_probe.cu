@@ -3,28 +3,30 @@
 //
 // Replaces the TPU probe kernel `make_fwd` of the JAX package's
 // scripts/dev_surfel_break.py (the stage ladder of pallas_surfel_fwd).  Each
-// variant is an instantiation of the one-CTA-per-tile body (surfel_fwd.cuh)
-// that was the production kernel before the sub-tile design of
-// surfel_subtile.cuh, so a probe times exactly that code minus the stages it
-// leaves out; `full` is bitwise the production kernel.  What each stage
-// writes is in the header; the plain PyTorch versions are
-// splat/probe_kernels.py.
+// variant is an instantiation of the production sub-tile body of kernel #3
+// (surfel_subtile.cuh::surfel_fwd_kernel), so a probe times exactly the code
+// that serves and trains minus the stages it leaves out; `full` is the
+// production kernel.  What each stage writes is in the header; the plain
+// PyTorch versions are splat/probe_kernels.py.
 //
 // Variants, by the index the wrapper passes (probe_kernels.SURFEL_VARIANTS):
-//   0 noop  1 load  2 alpha  3 geomd  4 trans  5 acc  6 full
+//   0 noop  1 load  2 skip  3 alpha  4 geomd  5 trans  6 acc  7 full
+//   8 noskip (the production kernel without its screen-circle skip)
 //
 // Bound on an H100: as the production kernel, by f32 operations for every
 // stage past load (the stage's own counts, tools/surfel_break.py).
 
-#include "surfel_fwd.cuh"
+#include "surfel_subtile.cuh"
 
 namespace {
 
-template <int TS, int STAGE>
+using namespace surfel_subtile;
+
+template <int TS, int STAGE, bool SKIP = true>
 int launch(const float* table, const int* ids, const int* starts,
            const int* counts, const float* planes, float* out, int num_tiles,
            int tiles_x, cudaStream_t s) {
-  surfel_fwd_kernel<TS, STAGE><<<num_tiles, THREADS, 0, s>>>(
+  surfel_fwd_kernel<TS, SKIP, STAGE><<<num_tiles * Pixel<TS>::CTAS, THREADS, 0, s>>>(
       table, ids, starts, counts, planes, out, tiles_x);
   return static_cast<int>(cudaGetLastError());
 }
@@ -35,13 +37,15 @@ int dispatch(int variant, const float* table, const int* ids,
              float* out, int num_tiles, int tiles_x, cudaStream_t s) {
 #define GD_ARGS table, ids, starts, counts, planes, out, num_tiles, tiles_x, s
   switch (variant) {
-    case 0: return launch<TS, NOOP>(GD_ARGS);
-    case 1: return launch<TS, LOAD>(GD_ARGS);
-    case 2: return launch<TS, ALPHA>(GD_ARGS);
-    case 3: return launch<TS, GEOMD>(GD_ARGS);
-    case 4: return launch<TS, TRANS>(GD_ARGS);
-    case 5: return launch<TS, ACC>(GD_ARGS);
-    case 6: return launch<TS, FULL>(GD_ARGS);
+    case 0: return launch<TS, stage::NOOP>(GD_ARGS);
+    case 1: return launch<TS, stage::LOAD>(GD_ARGS);
+    case 2: return launch<TS, stage::SKIP>(GD_ARGS);
+    case 3: return launch<TS, stage::ALPHA>(GD_ARGS);
+    case 4: return launch<TS, stage::GEOMD>(GD_ARGS);
+    case 5: return launch<TS, stage::TRANS>(GD_ARGS);
+    case 6: return launch<TS, stage::ACC>(GD_ARGS);
+    case 7: return launch<TS, stage::FULL>(GD_ARGS);
+    case 8: return launch<TS, stage::FULL, false>(GD_ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef GD_ARGS

@@ -2,9 +2,9 @@
 // threads per 16 x 16 sub-tile, one pixel per thread; the staging of a batch
 // of the tile's segment with the order-preserving screen-circle skip; the
 // front of each (slot, pixel) pair; and the forward kernel.
-// csrc/surfel_fwd.cu instantiates the forward, and csrc/surfel_bwd.cu builds
-// the backward on the same front.  The one-CTA-per-tile body it replaced
-// (csrc/surfel_fwd.cuh) stays as it was for its stage probes.
+// csrc/surfel_fwd.cu instantiates the forward, csrc/surfel_bwd.cu builds
+// the backward on the same front, and csrc/surfel_fwd_probe.cu instantiates
+// the forward's stage variants (the stage probes, below).
 //
 // Launch shape.  composite_subtile.cuh's: a 32 px tile is four sub-tile CTAs
 // (blockIdx.x = tile * 4 + q, q = qy * 2 + qx), a 16 px tile one; each
@@ -38,6 +38,38 @@
 // 2^-24 (2^-22 a side, 2^-21 together) of the real squared distance, plus
 // under 2^-148 absolute from underflowing squares, so the margin covers the
 // rounding 32-fold.  A slot with a non-finite centre or radius is kept.
+//
+// Stage probes.  surfel_fwd_kernel is templated on the skip and on a stage.
+// The production instantiation is surfel_fwd_kernel<TS> with both at their
+// defaults: each `if constexpr` then keeps exactly the production
+// statements in their order, so that kernels #3 and #4 compile to the same
+// machine code as before the probes existed (tools/sass_check.py checks
+// this against a parent's sources).  Anyone editing this file edits the
+// production kernels.  Each stripped stage writes a defined per-pixel
+// quantity (its plain version is splat/probe_kernels.py), all 13 rows from
+// its registers, so a row the stage does not reach keeps its initial value
+// (0, and T = 1 in row 12):
+//   NOOP   the production launch shape, no input read
+//   LOAD   every slot staged (ids, 96-byte row gathers, shared memory,
+//          barriers), no circle skip, no compaction; row 0 at the pixel of
+//          thread t: the sum of the 20 staged values (rad squared) of slot
+//          t of each batch, over the batches (the checksum)
+//   SKIP   + circle_keep and the ballot compaction; row 0: the checksum of
+//          the kept slot t of each batch, row 1: the kept slots
+//   ALPHA  + the front through alpha (the circle test, the cross product,
+//          1/cr_z, the power, exp, opacity and the 1/255 cull; no z); row 0:
+//          the sum of alpha over the pairs that pass
+//   GEOMD  + z = det / cr_z, the z > 0.2 cull and the mapped depth m; row 0:
+//          the sum of alpha over the pairs that pass both culls, row 1: the
+//          sum of m
+//   TRANS  + the transmittance chain, the stops and the CTA exit; row 12 =
+//          T_final (bitwise production).  A stopping pixel leaves the
+//          batch by a break (with the production kernel's jump to the
+//          loop's end ptxas spills this stage at 48 registers)
+//   ACC    + the color and normal rows and sum w (rows 0-5, 9 and 12
+//          bitwise production)
+//   FULL   + expected and median depth, the moments and the distortion: the
+//          production kernel
 
 #pragma once
 
@@ -59,6 +91,11 @@ constexpr float T_EPS = 1e-4f;
 constexpr float NEAR_CULL = 0.2f;
 constexpr float MARGIN_REL = 0x1p-16f;
 constexpr float MARGIN_ABS = 0x1p-100f;
+
+// the forward's stages (see the header comment); FULL is the production one
+namespace stage {
+enum : int { NOOP, LOAD, SKIP, ALPHA, GEOMD, TRANS, ACC, FULL };
+}
 
 // attribute rows of the table and of the staged batch
 enum { AX, AY, AZ, BX, BY, BZ, CX, CY, CZ, DET, PX, PY, OPA, CR, CG, CB, NX, NY,
@@ -90,11 +127,11 @@ struct Staged {
 };
 
 // Stage the slots seg[0, n) (n <= NB <= THREADS, one per thread), keep those
-// whose circle can reach the sub-tile with first pixel (x0, y0) and compact
-// them into `s` in segment order.  Returns how many were kept.  The caller
+// whose circle can reach the sub-tile with first pixel (x0, y0) (all,
+// without SKIP) and compact them into `s` in segment order.  Returns how many were kept.  The caller
 // has made sure the previous batch is fully read; on return the compacted
 // batch is visible to the whole CTA.
-template <int NB>
+template <int NB, bool SKIP = true>
 __device__ __forceinline__ int stage_batch(Staged<NB>& s,
                                            const float* __restrict__ table,
                                            const int* __restrict__ seg, int n,
@@ -110,7 +147,8 @@ __device__ __forceinline__ int stage_batch(Staged<NB>& s,
         reinterpret_cast<const float4*>(table + static_cast<size_t>(g) * ROW);
 #pragma unroll
     for (int q = 0; q < NV / 4; ++q) r[q] = row[q];
-    keep = circle_keep(r[PX / 4].z, r[PY / 4].w, r[RAD / 4].w, x0, y0);
+    keep = SKIP ? circle_keep(r[PX / 4].z, r[PY / 4].w, r[RAD / 4].w, x0, y0)
+                : true;
   }
   const unsigned ballot = __ballot_sync(FULL_MASK, keep);
   if (lane == 0) s.wcount[warp] = __popc(ballot);
@@ -136,6 +174,41 @@ __device__ __forceinline__ int stage_batch(Staged<NB>& s,
   }
   __syncthreads();
   return total;
+}
+
+// The load probe's staging: every slot of seg[0, n) into `s` at its own
+// index, with no predicate and no compaction.  Returns n.
+template <int NB>
+__device__ __forceinline__ int stage_all(Staged<NB>& s,
+                                         const float* __restrict__ table,
+                                         const int* __restrict__ seg, int n) {
+  const int t = threadIdx.x;
+  if (t < n) {
+    const int g = seg[t];
+    const float4* row =
+        reinterpret_cast<const float4*>(table + static_cast<size_t>(g) * ROW);
+#pragma unroll
+    for (int q = 0; q < NV / 4; ++q) {
+      const float4 r = row[q];
+      s.v[4 * q][t] = r.x;
+      s.v[4 * q + 1][t] = r.y;
+      s.v[4 * q + 2][t] = r.z;
+      s.v[4 * q + 3][t] = r.w;
+    }
+    s.v[RAD][t] = __fmul_rn(s.v[RAD][t], s.v[RAD][t]);
+  }
+  __syncthreads();
+  return n;
+}
+
+// The load and skip probes' checksum of staged slot t: its 20 staged values
+// added in row order.
+template <int NB>
+__device__ __forceinline__ float staged_sum(const Staged<NB>& s, int t) {
+  float v = s.v[0][t];
+#pragma unroll
+  for (int q = 1; q < NV; ++q) v = __fadd_rn(v, s.v[q][t]);
+  return v;
 }
 
 // This CTA's sub-tile (the launch geometry of composite_subtile.cuh: tile =
@@ -168,9 +241,9 @@ struct Pixel {
   }
 };
 
-// The front of one (staged slot k, pixel (X, Y)) pair, in the rounding of
-// the one-CTA-per-tile body (surfel_fwd.cuh), so that the two agree bit for
-// bit.
+// The front of one (staged slot k, pixel (X, Y)) pair, in the plain
+// version's rounding (splat/surfel_kernels.py::_chunk_geometry), so that the
+// two agree bit for bit.
 struct Front {
   float dx, dy, crx, cry, crz, rz, z, alpha;
   bool tiny;   // |cr_z| < 1e-8: rz is 1 / 1e-8
@@ -179,8 +252,9 @@ struct Front {
 
 // The circle test, the ray-plane cross product, 1/cr_z, the power, exp and
 // alpha; true where the pair passes the circle test and both culls (alpha
-// >= 1/255, z > 0.2), and then `f` holds its quantities.
-template <int NB>
+// >= 1/255, z > 0.2), and then `f` holds its quantities.  Without Z (the
+// alpha probe) z is not computed and only the alpha cull applies.
+template <int NB, bool Z = true>
 __device__ __forceinline__ bool front(const Staged<NB>& s, int k, float X,
                                       float Y, Front& f) {
   f.dx = __fsub_rn(X, s.v[PX][k]);
@@ -202,9 +276,13 @@ __device__ __forceinline__ bool front(const Staged<NB>& s, int k, float X,
   const float g2d = __fmul_rn(-0.25f, d2);
   f.sel3 = g3d >= g2d;
   const float power = f.sel3 ? g3d : g2d;
-  f.z = __fmul_rn(s.v[DET][k], f.rz);
+  if constexpr (Z) f.z = __fmul_rn(s.v[DET][k], f.rz);
   f.alpha = fminf(ALPHA_MAX, __fmul_rn(s.v[OPA][k], expf(power)));
-  return f.alpha >= ALPHA_MIN && f.z > NEAR_CULL;
+  if constexpr (Z) {
+    return f.alpha >= ALPHA_MIN && f.z > NEAR_CULL;
+  } else {
+    return f.alpha >= ALPHA_MIN;
+  }
 }
 
 // The mapped depth m = zfar / (zfar - znear) (1 - znear / max(z, 1e-6)).
@@ -216,8 +294,10 @@ __device__ __forceinline__ float mapped_depth(float F, float znear, float z) {
 // the tile's segment; per pixel the 13 rows color (3), normal (3), expected
 // depth, median depth, distortion, sum w, M1, M2 and T_final into out
 // (num_tiles, 13, ts*ts).  The CTA leaves the segment once all its pixels
-// are done (__syncthreads_count, once per batch).
-template <int TS>
+// are done (__syncthreads_count, once per batch).  SKIP: the screen-circle
+// skip (without it every slot is staged and kept); STAGE: the probes'
+// (header comment).  At their defaults this is the production kernel.
+template <int TS, bool SKIP = true, int STAGE = stage::FULL>
 __global__ void __launch_bounds__(THREADS)
 surfel_fwd_kernel(const float* __restrict__ table,
                   const int* __restrict__ sorted_ids,
@@ -237,35 +317,75 @@ surfel_fwd_kernel(const float* __restrict__ table,
   float T = 1.0f, acc[6] = {}, dexp = 0.0f, dmed = 0.0f, wsum = 0.0f,
         m1 = 0.0f, m2 = 0.0f;
   bool alive = true;
+  [[maybe_unused]] int kept_slots = 0;
+  if constexpr (STAGE != stage::NOOP) {   // NOOP: the loads above are dead
   for (int base = 0; base < count; base += BATCH) {
     // barrier: the previous batch is fully read before it is overwritten
     if (__syncthreads_count(alive) == 0) break;
-    const int kept = stage_batch<BATCH>(s, table, sorted_ids + start + base,
-                                        min(BATCH, count - base), px.x0, px.y0);
+    if constexpr (STAGE == stage::LOAD) {
+      const int n = stage_all<BATCH>(s, table, sorted_ids + start + base,
+                                     min(BATCH, count - base));
+      if (static_cast<int>(threadIdx.x) < n)
+        acc[0] = __fadd_rn(acc[0], staged_sum(s, threadIdx.x));
+      continue;
+    }
+    const int kept = stage_batch<BATCH, SKIP>(s, table, sorted_ids + start + base,
+                                              min(BATCH, count - base), px.x0,
+                                              px.y0);
+    if constexpr (STAGE == stage::SKIP) {
+      if (static_cast<int>(threadIdx.x) < kept)
+        acc[0] = __fadd_rn(acc[0], staged_sum(s, threadIdx.x));
+      kept_slots += kept;
+      continue;
+    }
     if (!alive) continue;
     for (int k = 0; k < kept; ++k) {
       Front f;
-      if (!front(s, k, px.X, px.Y, f)) continue;
-      const float U = __fmul_rn(T, __fsub_rn(1.0f, f.alpha));
-      if (U < T_EPS) {  // done before this slot: leave the batch (written
-        alive = false;  // as a jump to the loop's end, where a break makes
-        k = kept;       // ptxas spill the 32 px kernel at 64 registers)
+      if constexpr (STAGE == stage::ALPHA) {
+        if (front<BATCH, false>(s, k, px.X, px.Y, f))
+          acc[0] = __fadd_rn(acc[0], f.alpha);
         continue;
       }
+      if (!front(s, k, px.X, px.Y, f)) continue;
+      if constexpr (STAGE == stage::GEOMD) {
+        acc[0] = __fadd_rn(acc[0], f.alpha);
+        acc[1] = __fadd_rn(acc[1], mapped_depth(F, znear, f.z));
+        continue;
+      }
+      const float U = __fmul_rn(T, __fsub_rn(1.0f, f.alpha));
+      if (U < T_EPS) {  // done before this slot: leave the batch
+        alive = false;
+        if constexpr (STAGE == stage::TRANS) {
+          break;        // (see TRANS in the header comment)
+        } else {
+          k = kept;     // a jump to the loop's end: a break makes ptxas
+          continue;     // spill the 32 px kernel at 64 registers
+        }
+      }
+      if constexpr (STAGE == stage::FULL) {
       if (T > 0.5f && U < 0.5f) dmed = f.z;   // the median crossing
+      }
+      if constexpr (STAGE >= stage::ACC) {
       const float w = __fmul_rn(f.alpha, T);
 #pragma unroll
       for (int r = 0; r < 6; ++r)
         acc[r] = __fadd_rn(acc[r], __fmul_rn(w, s.v[CR + r][k]));
+      if constexpr (STAGE == stage::FULL) {
       dexp = __fadd_rn(dexp, __fmul_rn(w, f.z));
       const float m = mapped_depth(F, znear, f.z);
       const float wm = __fmul_rn(w, m);
       wsum = __fadd_rn(wsum, w);
       m1 = __fadd_rn(m1, wm);
       m2 = __fadd_rn(m2, __fmul_rn(wm, m));
+      } else {
+      wsum = __fadd_rn(wsum, w);
+      }
+      }
       T = U;
     }
   }
+  }
+  if constexpr (STAGE == stage::SKIP) acc[1] = static_cast<float>(kept_slots);
 
   float* o = out + static_cast<size_t>(px.tile) * OUT_ROWS * NPIX + px.p;
 #pragma unroll

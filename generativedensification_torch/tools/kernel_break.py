@@ -9,19 +9,25 @@ on the card, from its stage probes.
 
 The port of the JAX package's ``scripts/dev_kernel_break.py`` (and, with
 ``--bwd``, of ``scripts/dev_bwd_break.py``).  Each stage is a variant of
-``splat/probe_kernels.py::composite_fwd_probe``, run in the given order
-(default: the ladder ``noop load power alpha trans full``; the others are
-``full_noexit``, ``full_b128``, ``trips``, ``noop_bulk``, ``full_bulk``,
-``tpb2``, ``tpb4``, ``tpb2_bulk``, ``tpb4_bulk``, all of the one-CTA-per-tile
-design that preceded the sub-tile kernels, and ``sub_noexit`` /
-``sub_noskip``, the production sub-tile kernel without its per-sub-tile exit
-or without its footprint skip).  For each stage it prints
-the median time of ``--reps`` launches (default 20, CUDA events), the increment over the stage
-before, the stage's operation and byte counts from this scene's data and
-the bound they give (``timing.bound``).  Every variant is held bitwise
-against its plain version, and those whose output is the production
-kernel's against the production kernel; ``trips`` prints the executed and
-assigned staging batches per tile.
+``splat/probe_kernels.py::composite_fwd_probe``, an instantiation of the
+production sub-tile body of kernel #1 (``csrc/composite_subtile.cuh``), run
+in the given order (default: the ladder ``noop load skip power alpha trans
+full``; the others are ``noexit`` / ``noskip`` (production without its
+per-sub-tile exit / its footprint skip), ``b128`` (128 slots staged per
+batch), ``trips``, ``noop_bulk`` / ``full_bulk`` (the output by bulk
+asynchronous copies) and ``tpb2`` / ``tpb4`` / ``tpb2_bulk`` /
+``tpb4_bulk`` (2 or 4 sub-tiles per CTA)).  The variants and the
+production kernel are timed in 5 rounds of alternating order, each the
+median of ``--reps`` launches (default 20, CUDA events, each launch
+enqueued behind a device spin so that its wrapper's host time is not
+counted).  For each stage it
+prints the median of its rounds and their range, the increment over the
+stage before, the stage's operation and byte counts from this scene's data
+and the bound they give (``timing.bound``); then ``full`` beside the
+production kernel (their machine code is the same).  Every variant is held bitwise against
+its plain version, and those whose output is the production kernel's
+against the production kernel; ``trips`` prints the executed and assigned
+staging batches and the kept slots per sub-tile CTA.
 
 Scene A is ``bench.py``'s (``--n`` Gaussians in a ``--hw``² view, default
 131,072 at 512²), scene B the 262,144 coarse Gaussians of the full-width
@@ -77,54 +83,70 @@ from ..splat import probe_kernels as pk
 from ..utils.device import resolve_device
 from . import scenes, timing
 
-LADDER = ("noop", "load", "power", "alpha", "trans", "full")
+LADDER = ("noop", "load", "skip", "power", "alpha", "trans", "full")
 REPS = 20
+ROUNDS = 5
 
 
-def stage_cost(variant: str, args, stats: dict) -> dict:
-    """Bytes and f32 operations of one probe launch on this data, and the
-    bound they give.  Every stage reads the table, the live ids and the
-    segment bounds (noop reads nothing) and writes the (T, 5, ts²) output;
-    the operations are those the stage keeps (``timing``'s per-evaluation
-    and per-contribution counts), with the probe's own sums: power 12 + 1
-    per evaluation, alpha 17 per evaluation + 1 per hit, trans and trips 17
-    per evaluation + 3 per contribution, the load stage 2 + 10 per slot."""
+def stage_cost(variant: str, args, work: dict) -> dict:
+    """Bytes and f32 operations of one probe launch on this data
+    (``work``: ``probe_kernels.composite_work``), and the bound they give.
+    Every stage reads the table, the live ids and the segment bounds (noop
+    reads nothing) and writes the (T, 5, ts²) output.  The operations are
+    those the stage keeps, per (slot, sub-tile CTA) staging: load 2 + the
+    checksum's 10; from skip on 2 + the predicate's own count
+    (``probe_kernels.KEEP_OPS``), skip adding 10 per kept staging; then per
+    (kept slot, pixel) evaluation ``timing``'s counts with the probe's own
+    sums: power 12 + 1, alpha 17 + 1 per hit, trans and trips 17 + 3 per
+    contribution, the production-output variants 17 + 12 per contribution
+    (noskip: every slot staged and evaluated, no predicate).  The integer
+    work of the compaction and the exit is not counted."""
     table, ids, starts, counts, tiles_x, tiles_y, ts = args
     n_tiles = tiles_x * tiles_y
     out_bytes = n_tiles * kernels.OUT_ROWS * ts * ts * 4
     if variant in ("noop", "noop_bulk"):
-        return timing.bound(out_bytes, 0)
+        return dict(work, **timing.bound(out_bytes, 0))
     live = int(counts.sum())
     n_bytes = table.numel() * 4 + live * 4 + 2 * n_tiles * 4 + out_bytes
-    ev, E = stats.get("evals", 0), timing.OPS_PER_EVAL
-    ops = {"load": live * 12,
-           "power": ev * 13,
-           "alpha": ev * E + stats.get("hits", 0),
-           "trans": ev * E + stats.get("contribs", 0) * 3,
-           "trips": ev * E + stats.get("contribs", 0) * 3}.get(
-        variant, ev * E + stats.get("contribs", 0) * timing.OPS_PER_CONTRIB)
-    return timing.bound(n_bytes, ops)
+    E = timing.OPS_PER_EVAL
+    front = work["staged"] * 2 + work["predicate_ops"]
+    ev, contribs = work["evals"], work["contribs"]
+    ops = {"load": work["staged"] * 12,
+           "skip": front + work["kept"] * 10,
+           "power": front + ev * 13,
+           "alpha": front + ev * E + work["hits"],
+           "trans": front + ev * E + contribs * 3,
+           "trips": front + ev * E + contribs * 3}.get(
+        variant, front + ev * E + contribs * timing.OPS_PER_CONTRIB)
+    return dict(work, **timing.bound(n_bytes, ops))
 
 
 def run_stages(probe, plain, variants, args, cost, production=None,
-               reps: int = REPS) -> list[dict]:
-    """Time ``probe(variant, *args)`` for each variant in order and hold it
-    bitwise against ``plain(variant, *args, stats=...)``; a variant whose
-    output is the production output (``production``: the variants and the
-    production output) is also held against the production kernel's.
-    Prints one line per stage and returns the records."""
+               reps: int = REPS, rounds: int = ROUNDS) -> dict:
+    """Hold ``probe(variant, *args)`` bitwise against ``plain(variant,
+    *args)`` for each variant, then time them in ``rounds`` rounds (the
+    variants in order, then in reverse, alternating), each the median of
+    ``reps`` launches; a variant's time is the median of its rounds, its
+    spread their range.  ``cost(variant)`` gives its work and bound.
+    ``production`` (the variants whose output is the production output, the
+    production kernel's output and a callable that launches it): those
+    variants are also held against the production output, and the
+    production kernel is timed in the same rounds.  On the card each timed
+    launch finds the card busy (``timing.busy``), so the wrappers' host time
+    is not counted.  Prints one line per
+    stage (its increment over the stage before), then ``full`` beside the
+    production kernel, and returns the records (``stages``) and that
+    comparison (``full_vs_production``)."""
     on_card = args[0].device.type == "cuda"
-    clock = (lambda f: timing.cuda_ms(f, reps)) if on_card else \
-        (lambda f: timing.host_ms(f, reps))
-    recs, prev, cache = [], 0.0, {}
+    clock = (lambda f: timing.cuda_ms(f, reps, before=timing.busy())) if on_card \
+        else (lambda f: timing.host_ms(f, reps))
+    recs, cache = {}, {}
     for v in variants:
         # the production-output variants share one plain run
         key = "production" if production is not None and v in production[0] else v
         if key not in cache:
-            stats = {}
-            cache[key] = (*timing.once(lambda: plain(v, *args, stats=stats), on_card),
-                          stats)
-        ref, t_plain, stats = cache[key]
+            cache[key] = timing.once(lambda: plain(v, *args), on_card)
+        ref, t_plain = cache[key]
         out = probe(v, *args)
         if on_card:
             torch.cuda.synchronize()
@@ -134,30 +156,50 @@ def run_stages(probe, plain, variants, args, cost, production=None,
         if production is not None and v in production[0] and not torch.equal(
                 out, production[1]):
             raise SystemExit(f"{v}: output differs from the production kernel's")
-        ms = clock(lambda: probe(v, *args))
-        rec = dict(variant=v, ms=ms, delta_ms=ms - prev, plain_ms=t_plain,
-                   max_abs_err=float((out - ref).abs().max()), **stats,
-                   **cost(v, args, stats))
+        recs[v] = dict(variant=v, plain_ms=t_plain,
+                       max_abs_err=float((out - ref).abs().max()), **cost(v))
         if v == "trips":
-            executed, assigned = out[:, 0, 0].long(), out[:, 1, 0].long()
-            rec.update(executed=int(executed.sum()), assigned=int(assigned.sum()),
-                       tiles=int(executed.numel()),
-                       tiles_exiting_early=int((executed < assigned).sum()),
-                       executed_max=int(executed.max()),
-                       executed_median=float(executed.float().median()),
-                       assigned_max=int(assigned.max()))
-        recs.append(rec)
+            pix = pk.lane_pixels(args[-1], False, out.device)[:, 0]
+            executed, assigned, kept = (out[:, r][:, pix].long() for r in range(3))
+            recs[v].update(executed=int(executed.sum()), assigned=int(assigned.sum()),
+                           kept_stagings=int(kept.sum()), ctas=int(executed.numel()),
+                           ctas_exiting_early=int((executed < assigned).sum()),
+                           executed_max=int(executed.max()),
+                           executed_median=float(executed.float().median()),
+                           assigned_max=int(assigned.max()))
+    fns = {v: (lambda v=v: probe(v, *args)) for v in recs}
+    if production is not None:
+        fns["production"] = production[2]
+    runs = {k: [] for k in fns}
+    for r in range(rounds):
+        for k in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            runs[k].append(clock(fns[k]))
+    prev = 0.0
+    for v, rec in recs.items():
+        ms = statistics.median(runs[v])
+        rec.update(ms=ms, delta_ms=ms - prev, runs_ms=runs[v])
         prev = ms
-        print(f"{v:12s} {ms:8.3f} ms (+{rec['delta_ms']:7.3f})  ops {rec['ops']:.4g}  "
+        print(f"{v:12s} {ms:8.3f} ms (+{rec['delta_ms']:7.3f}; rounds "
+              f"{min(runs[v]):.3f}-{max(runs[v]):.3f})  ops {rec['ops']:.4g}  "
               f"bytes {rec['bytes']:.4g}  bound {rec['bound_ms']:.4f} ms "
               f"({rec['bound_by']})", flush=True)
         if v == "trips":
             print(f"{'':12s} executed {rec['executed']} / assigned {rec['assigned']} "
-                  f"staging batches; tiles exiting early "
-                  f"{rec['tiles_exiting_early']}/{rec['tiles']}; executed per tile "
-                  f"max {rec['executed_max']}, median {rec['executed_median']:g}",
-                  flush=True)
-    return recs
+                  f"staging batches, {rec['kept_stagings']} kept stagings; CTAs "
+                  f"exiting early {rec['ctas_exiting_early']}/{rec['ctas']}; "
+                  f"executed per CTA max {rec['executed_max']}, median "
+                  f"{rec['executed_median']:g}", flush=True)
+    res = dict(stages=list(recs.values()))
+    if production is not None and "full" in recs:
+        t = {k: dict(ms=statistics.median(runs[k]), runs_ms=runs[k])
+             for k in ("full", "production")}
+        res["full_vs_production"] = t
+        print(f"{'full':12s} {t['full']['ms']:8.3f} ms  production "
+              f"{t['production']['ms']:8.3f} ms (same rounds; full "
+              f"{min(runs['full']):.3f}-{max(runs['full']):.3f}, production "
+              f"{min(runs['production']):.3f}-{max(runs['production']):.3f})",
+              flush=True)
+    return res
 
 
 def bwd_breakdown(args, back, reps: int = REPS) -> list[dict]:
@@ -733,10 +775,12 @@ def run(argv=None) -> dict:
             res["bwd"] = bwd_breakdown(args, back, a.reps)
         else:
             prod = kernels.composite_fwd(*args)
-            res["stages"] = run_stages(pk.composite_fwd_probe,
-                                       pk.composite_fwd_probe_plain, a.stages, args,
-                                       stage_cost, (pk.PRODUCTION_OUTPUT, prod),
-                                       a.reps)
+            chain = pk.composite_chain("trans", *args, kernels.subtile_touch(*args))
+            res.update(run_stages(
+                pk.composite_fwd_probe, pk.composite_fwd_probe_plain, a.stages, args,
+                lambda v: stage_cost(v, args, pk.composite_work(v, chain, *args)),
+                (pk.PRODUCTION_OUTPUT, prod, lambda: kernels.composite_fwd(*args)),
+                a.reps))
     return res
 
 

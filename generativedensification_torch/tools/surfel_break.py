@@ -9,17 +9,22 @@ backward (``csrc/surfel_bwd.cu``); both against a parent's kernels.
         [--device cuda]
 
 The port of the JAX package's ``scripts/dev_surfel_break.py``.  Each stage is
-a variant of ``splat/probe_kernels.py::surfel_fwd_probe``, run in the given
-order (default: the ladder ``noop load alpha geomd trans acc full``), all of
-the one-CTA-per-tile design (``csrc/surfel_fwd.cuh``) that preceded the
-sub-tile kernel.  For each stage it prints the median time of ``--reps``
-launches (default 20, CUDA events), the increment over the stage before,
-the stage's operation and byte counts from this scene's data and the bound
-they give (``timing.bound``).  Every variant is held bitwise against its
-plain version, and ``full`` against the production kernel.  Each run prints
-the scene's overflow and the share of (slot, sub-tile) pairs and of circle
-tests that the kernels' screen-circle skip keeps
-(``surfel_kernels.subtile_touch``).
+a variant of ``splat/probe_kernels.py::surfel_fwd_probe``, an instantiation
+of the production sub-tile body of kernel #3 (``csrc/surfel_subtile.cuh``),
+run in the given order (default: the ladder ``noop load skip alpha geomd
+trans acc full``; beside it ``noskip``, production without its
+screen-circle skip).  The variants and the production kernel are timed as
+``kernel_break.run_stages`` times them (5 rounds of alternating order, each
+the median of ``--reps`` launches, default 20, CUDA events); for each stage
+it prints the median of its rounds and their range, the increment over the
+stage before, the stage's operation and byte counts from this scene's data
+and the bound they give (``timing.bound``); then ``full`` beside the
+production kernel (their machine code is the same).  Every variant is
+held bitwise against its plain version, ``full`` and ``noskip`` against the
+production kernel, and ``trans`` / ``acc`` on the production rows they
+reach.  Each run prints the scene's overflow and the share of (slot,
+sub-tile) pairs and of circle tests that the kernels' screen-circle skip
+keeps (``surfel_kernels.subtile_touch``).
 
 ``--bwd`` times the backward kernel #4 in ``full`` and ``selonly`` instead,
 on the cotangent and total rows of ``splat/surfel.py::_bwd_rows`` (the
@@ -73,36 +78,44 @@ from .kernel_break import (
 
 GRAD_ATOL = 5e-5     # per row, after scaling by its max |value|
 
-LADDER = ("noop", "load", "alpha", "geomd", "trans", "acc", "full")
+LADDER = ("noop", "load", "skip", "alpha", "geomd", "trans", "acc", "full")
 
 
-def stage_cost(variant: str, args, stats: dict) -> dict:
-    """Bytes and f32 operations of one probe launch on this data, and the
-    bound they give.  Every stage reads the table, the live ids, the
-    segment bounds and the planes (noop reads nothing) and writes the
-    (T, 13, ts²) output; the operations are those the stage keeps
-    (``timing``'s surfel counts), with the probe's own sums: the circle test
-    6 per evaluation everywhere; inside the circle alpha 29 (no z) + 1 per
-    hit, geomd 31 + 6 per hit (the mapped depth and two sums), trans 31 + 3
-    per contribution, acc 31 + 17 per contribution (w, six multiply-adds,
-    sum w); the load stage 20 per slot."""
+def stage_cost(variant: str, args, work: dict) -> dict:
+    """Bytes and f32 operations of one probe launch on this data
+    (``work``: ``probe_kernels.surfel_work``), and the bound they give.
+    Every stage reads the table, the live ids, the segment bounds and the
+    planes (noop reads nothing) and writes the (T, 13, ts²) output.  The
+    operations are those the stage keeps, per (slot, sub-tile CTA)
+    staging: load the squared radius and the checksum's 19 additions; from
+    skip on the squared radius and the circle test's own count
+    (``probe_kernels.CIRCLE_OPS``), skip adding 19 per kept staging; then
+    ``timing``'s surfel counts with the probe's own sums: the circle test 6
+    per (kept slot, pixel) evaluation; inside the circle alpha 29 (no z) +
+    1 per hit, geomd 31 + 6 per hit (the mapped depth and two sums), trans
+    31 + 3 per contribution, acc 31 + 17 per contribution (w, six
+    multiply-adds, sum w), full 31 + 30 (noskip: every slot staged and
+    tested, no predicate).  The integer work of the compaction and the exit
+    is not counted."""
     table, ids, starts, counts, planes, tiles_x, tiles_y, ts = args
     n_tiles = tiles_x * tiles_y
     out_bytes = n_tiles * len(surfel_kernels.FWD_ROWS) * ts * ts * 4
     if variant == "noop":
-        return timing.bound(out_bytes, 0)
+        return dict(work, **timing.bound(out_bytes, 0))
     live = int(counts.sum())
     n_bytes = table.numel() * 4 + live * 4 + 2 * n_tiles * 4 + 8 + out_bytes
-    front = stats.get("evals", 0) * timing.SURFEL_OPS_PER_EVAL
-    inside, hits, contribs = (stats.get(k, 0) for k in ("inside", "hits", "contribs"))
     I = timing.SURFEL_OPS_PER_INSIDE
-    ops = {"load": live * 20,
+    front = (work["staged"] + work["predicate_ops"]
+             + work["evals"] * timing.SURFEL_OPS_PER_EVAL)
+    inside, hits, contribs = work["inside"], work["hits"], work["contribs"]
+    ops = {"load": work["staged"] * 20,
+           "skip": work["staged"] + work["predicate_ops"] + work["kept"] * 19,
            "alpha": front + inside * (I - 2) + hits,
            "geomd": front + inside * I + hits * 6,
            "trans": front + inside * I + contribs * 3,
            "acc": front + inside * I + contribs * 17}.get(
         variant, front + inside * I + contribs * timing.SURFEL_OPS_PER_CONTRIB["fwd"])
-    return timing.bound(n_bytes, ops)
+    return dict(work, **timing.bound(n_bytes, ops))
 
 
 def skip_shares(args) -> dict:
@@ -303,9 +316,18 @@ def run(argv=None) -> dict:
             res["bwd"] = bwd_breakdown(args, si, a.reps, a.full_batches)
         else:
             prod = surfel_kernels.surfel_fwd(*args)
-            res["stages"] = run_stages(pk.surfel_fwd_probe, pk.surfel_fwd_probe_plain,
-                                       a.stages, args, stage_cost, (("full",), prod),
-                                       a.reps)
+            touch = surfel_kernels.subtile_touch(*args[:4], *args[5:])
+            chain = pk.surfel_chain(*args, touch)
+            res.update(run_stages(
+                pk.surfel_fwd_probe, pk.surfel_fwd_probe_plain, a.stages, args,
+                lambda v: stage_cost(v, args, pk.surfel_work(v, chain, *args)),
+                (pk.SURFEL_PRODUCTION_OUTPUT, prod,
+                 lambda: surfel_kernels.surfel_fwd(*args)), a.reps))
+            for v in set(pk.SURFEL_STAGE_ROWS) & set(a.stages):
+                rows = list(pk.SURFEL_STAGE_ROWS[v])
+                if not torch.equal(pk.surfel_fwd_probe(v, *args)[:, rows], prod[:, rows]):
+                    raise SystemExit(f"{v}: its rows {rows} differ from the production "
+                                     "kernel's")
     return res
 
 

@@ -78,19 +78,28 @@ def cuda_ms(fn, reps: int, warmup: int = 2, before=None) -> float:
 
 def cold_l2(dev, spin_cycles: int = 1_000_000):
     """A ``before`` for ``cuda_ms``: reads a 256 MB buffer, so that the timed
-    call finds the 50 MB L2 cache cold, then keeps the card busy for
-    ``spin_cycles`` clock cycles (~0.5 ms by default) while the host
-    enqueues the call, so that the interval holds the device's work and not
-    the caller's host time."""
+    call finds the 50 MB L2 cache cold, then keeps the card busy as
+    ``busy`` does."""
     import torch
 
     scratch = torch.zeros(64 * 2**20, dtype=torch.float32, device=dev)
+    spin = busy(spin_cycles)
 
     def before():
         scratch.sum()
-        torch.cuda._sleep(spin_cycles)
+        spin()
 
     return before
+
+
+def busy(spin_cycles: int = 1_000_000):
+    """A ``before`` for ``cuda_ms``: keeps the card busy for ``spin_cycles``
+    clock cycles (~0.5 ms) while the host enqueues the timed call, so that
+    the interval holds the device's work and not the caller's host time (a
+    launch that finds the card idle would count the wrapper's Python)."""
+    import torch
+
+    return lambda: torch.cuda._sleep(spin_cycles)
 
 
 def once(fn, on_card: bool):

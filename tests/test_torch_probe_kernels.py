@@ -1,7 +1,10 @@
 """The stage probes of the two forward compositors on the card: every
 variant's CUDA kernel bitwise against its plain version, and the variants
-whose output is the production output bitwise against the production
-kernel, at both tile sizes (``gpu`` marker; skips without a card).
+whose output is the production output (3DGS: ``full``, ``noexit``,
+``noskip``, ``b128``, ``full_bulk`` and the ``tpb*``; 2DGS: ``full``,
+``noskip`` and the rows that ``trans`` / ``acc`` reach) bitwise against the
+production kernel, at both tile sizes (``gpu`` marker; skips without a
+card).
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine with only PyTorch:
@@ -60,7 +63,10 @@ def test_composite_probes_match_plain(cuda_device, ts):
             if v in pk.PRODUCTION_OUTPUT:
                 assert torch.equal(out, prod), v
         trips = pk.composite_fwd_probe("trips", *args)
-    assert bool((trips[:, 1, 0] > 1).any())          # several batches somewhere
+    pix = pk.lane_pixels(ts, False, cuda_device)[:, 0]   # each sub-tile's CTA
+    executed, assigned = trips[:, 0][:, pix], trips[:, 1][:, pix]
+    assert bool((assigned > 1).any())                # several batches somewhere
+    assert bool((executed < assigned).any())         # and CTAs that leave early
 
 
 @pytest.mark.gpu
@@ -71,16 +77,21 @@ def test_surfel_probes_match_plain(cuda_device, ts):
                                             hw=256)
         prod = surfel_kernels.surfel_fwd(*args)
         for v in pk.SURFEL_VARIANTS:
+            before = kernels.launch_counts["surfel_fwd_probe"]
             out = pk.surfel_fwd_probe(v, *args)
             torch.cuda.synchronize()
+            assert kernels.launch_counts["surfel_fwd_probe"] == before + 1
             ref = pk.surfel_fwd_probe_plain(v, *args)
             assert torch.equal(out, ref), v
-        assert torch.equal(pk.surfel_fwd_probe("full", *args), prod)
+            if v in pk.SURFEL_PRODUCTION_OUTPUT:
+                assert torch.equal(out, prod), v
+            rows = list(pk.SURFEL_STAGE_ROWS.get(v, ()))
+            assert torch.equal(out[:, rows], prod[:, rows]), v
 
 
 @pytest.mark.gpu
 def test_probe_wrappers_refuse(cuda_device):
-    args = _scene(cuda_device, 32, n=500, hw=96)          # 9 tiles
+    args = _scene(cuda_device, 16, n=500, hw=48)          # 9 sub-tiles
     with pytest.raises(ValueError, match="multiple of 2"):
         pk.composite_fwd_probe("tpb2", *args)
     with pytest.raises(ValueError, match="unknown probe variant"):

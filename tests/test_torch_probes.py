@@ -5,14 +5,18 @@ Each scene is projected (3DGS) or set up (surfels) and binned by the JAX
 package; the port's probes composite the same arrays.  Every stripped
 stage's plain output is held against an independent numpy computation from
 those arrays: the per-(slot, pixel) quantities in float32 in the kernels'
-order, the stage's sums in float64, within 1e-5 of Σ|terms| per pixel (the
-port adds serially in f32).  The transmittance rows are also held bitwise
-against the production plain rows, ``trips`` against a numpy loop over the
-staging batches, and ``full`` against the JAX Pallas forward (interpret
-mode) at the existing contracts: 3DGS 2e-4, surfels the JAX surfel
-contract (``tests/test_torch_surfel.py``).  The breakdown entry points run
-with ``--device cpu`` on a tiny scene; without a card ``device=None``
-raises.
+order over the slots that the skip keeps for the pixel's 16 x 16 sub-tile
+(``subtile_touch``), the stage's sums in float64, within 1e-5 of Σ|terms|
+per pixel (the port adds serially in f32), each sub-tile CTA's thread t at
+its own pixel.  The ``skip`` stages' kept counts and compaction order are
+held against a numpy walk of the staging batches, the transmittance rows
+bitwise against the production plain rows, ``trips`` against a numpy loop
+over the staging batches of each sub-tile CTA, every production-output
+variant's plain version bitwise against the production plain version, and
+``full`` against the JAX Pallas forward (interpret mode) at the existing
+contracts: 3DGS 2e-4, surfels the JAX surfel contract
+(``tests/test_torch_surfel.py``).  The breakdown entry points run with
+``--device cpu`` on a tiny scene; without a card ``device=None`` raises.
 """
 
 import jax.numpy as jnp
@@ -34,7 +38,7 @@ from generativedensification_torch.splat import probe_kernels as pk
 from generativedensification_torch.splat import surfel as tsur
 from generativedensification_torch.splat import surfel_kernels
 from generativedensification_torch.splat.composite import _images, pack_table
-from generativedensification_torch.tools import kernel_break, scenes, surfel_break
+from generativedensification_torch.tools import kernel_break, sass_check, scenes, surfel_break
 
 torch.set_num_threads(1)
 
@@ -114,27 +118,66 @@ def _gauss_eval(d, ox, oy, seg):
     return power, alpha
 
 
-def _chain(alpha, ok, batch=pk.BATCH):
-    """The transmittance chain of one tile over its slots in float32, batch by
-    batch: T_final per pixel, and the executed staging batches (a batch runs
-    while any pixel is alive at its start)."""
+def _chain(alpha, ok):
+    """The transmittance chain of one tile over its slots in float32: T_final
+    per pixel, the weights, and the slot before which each pixel stopped (-1
+    if it never did)."""
     T_ = np.ones(alpha.shape[1], f32)
     alive = np.ones(alpha.shape[1], bool)
+    stop_at = np.full(alpha.shape[1], -1)
     w = np.zeros_like(alpha)
-    executed = 0
-    for base in range(0, alpha.shape[0], batch):
-        if not alive.any():
-            break
-        executed += 1
-        for j in range(base, min(base + batch, alpha.shape[0])):
-            use = alive & ok[j]
-            U = T_ * (f32(1) - alpha[j])
-            stop = use & (U < f32(1e-4))
-            alive &= ~stop
-            take = use & ~stop
-            w[j] = np.where(take, alpha[j] * T_, 0)
-            T_ = np.where(take, U, T_)
-    return T_, w, executed
+    for j in range(alpha.shape[0]):
+        use = alive & ok[j]
+        U = T_ * (f32(1) - alpha[j])
+        stop = use & (U < f32(1e-4))
+        alive &= ~stop
+        stop_at[stop] = j
+        take = use & ~stop
+        w[j] = np.where(take, alpha[j] * T_, 0)
+        T_ = np.where(take, U, T_)
+    return T_, w, stop_at
+
+
+def _lanes(ts, warp_blocks):
+    """(sub-tiles, 256): the tile pixel of thread t of each sub-tile's CTA
+    (3DGS row-major; 2DGS each warp an 8 x 4 block)."""
+    t = np.arange(pk.THREADS)
+    if warp_blocks:
+        x = (t // 32 % 2) * 8 + t % 8
+        y = (t // 64) * 4 + t % 32 // 8
+    else:
+        x, y = t % 16, t // 16
+    side = ts // 16
+    return np.stack([(q // side * 16 + y) * ts + q % side * 16 + x
+                     for q in range(side * side)])
+
+
+def _subtile_of(ts):
+    p = np.arange(ts * ts)
+    return (p // ts // 16) * (ts // 16) + p % ts // 16
+
+
+def _check_checksums(out, t, staged, kept_slots, lanes, name):
+    """The load / skip rows of tile t: thread i of sub-tile q sums the staged
+    values (slots, width) of the i-th slot of each batch that
+    ``kept_slots[q]`` (slots, bool) keeps; row 1 (skip) the kept count."""
+    for q, keep in enumerate(kept_slots):
+        ref, terms = np.zeros(pk.THREADS), np.zeros(pk.THREADS)
+        for base in range(0, len(staged), pk.BATCH):
+            idx = base + np.flatnonzero(keep[base:base + pk.BATCH])
+            ref[:len(idx)] += staged[idx].sum(1)
+            terms[:len(idx)] += np.abs(staged[idx]).sum(1)
+        _within(out[t, 0, lanes[q]], ref, terms, f"{name} q{q}")
+        if name == "skip":
+            assert (out[t, 1, lanes[q]] == keep.sum()).all(), (t, q)
+
+
+def _executed(stop_at, sub_of, q, count):
+    """Staging batches sub-tile q's CTA runs: batch b while any of its pixels
+    is alive at its start."""
+    s = stop_at[sub_of == q]
+    assigned = -(-count // pk.BATCH)
+    return min(s.max() // pk.BATCH + 1, assigned) if (s >= 0).all() else assigned
 
 
 def _within(port, ref, terms, name):
@@ -144,40 +187,54 @@ def _within(port, ref, terms, name):
 
 
 def test_composite_stages_match_numpy(gauss):
-    """load, power, alpha and trans against numpy; trans bitwise the
-    production plain row 4; trips against the batch loop."""
+    """load, skip, power, alpha and trans against numpy over the slots the
+    skip keeps; skip's kept counts and compaction order against a walk of
+    the staging batches; trans bitwise the production plain row 4; trips
+    against the batch loop of each sub-tile CTA."""
     d = gauss
+    ts = d["ts"]
     out = {v: pk.composite_fwd_probe(v, *d["args"]).numpy()
-           for v in ("load", "power", "alpha", "trans", "trips")}
+           for v in ("load", "skip", "power", "alpha", "trans", "trips")}
     prod = kernels.composite_fwd_plain(*d["args"]).numpy()
-    early = 0
+    touch = kernels.subtile_touch(*d["args"]).numpy()
+    lanes, sub_of = _lanes(ts, False), _subtile_of(ts)
+    early = dropped = 0
     for t, ox, oy, seg in _segments(d):
-        # load: per lane, the ten staged values of its slots over the batches
+        s = d["starts"][t]
+        kept_slots = touch[:, s:s + len(seg)]                  # (sub-tiles, slots)
+        # load: every slot at its own lane; skip: the kept ones, compacted
         staged = np.stack([d["xy"][seg, 0] - ox, d["xy"][seg, 1] - oy,
                            *d["conic"][seg].T, d["opa"][seg], *d["color"][seg].T,
                            d["depth"][seg]], axis=1).astype(np.float64)
-        lane = np.arange(len(seg)) % pk.BATCH
-        ref = np.bincount(lane, staged.sum(1), minlength=pk.BATCH)
-        terms = np.bincount(lane, np.abs(staged).sum(1), minlength=pk.BATCH)
-        _within(out["load"][t, 0, :pk.BATCH], ref, terms, "load")
-        assert not out["load"][t, 1:].any() and not out["load"][t, 0, pk.BATCH:].any()
+        _check_checksums(out["load"], t, staged, np.ones_like(kept_slots), lanes,
+                         "load")
+        _check_checksums(out["skip"], t, staged, kept_slots, lanes, "skip")
+        dropped += (~kept_slots).sum()
+        kept = kept_slots[sub_of].T                            # (slots, pixels)
         power, alpha = _gauss_eval(d, ox, oy, seg)
-        p64 = power.astype(np.float64)
+        p64 = np.where(kept, power, 0).astype(np.float64)
         _within(out["power"][t, 0], p64.sum(0), np.abs(p64).sum(0), "power")
-        hit = alpha >= f32(1.0 / 255.0)
+        hit = (alpha >= f32(1.0 / 255.0)) & kept
         a64 = np.where(hit, alpha, 0).astype(np.float64)
         _within(out["alpha"][t, 0], a64.sum(0), a64.sum(0), "alpha")
-        T_, _, executed = _chain(alpha, hit)
+        T_, _, stop_at = _chain(alpha, hit)
         _within(out["trans"][t, 4], 1.0 - T_.astype(np.float64), np.ones_like(T_),
                 "trans")
-        assigned = -(-len(seg) // pk.BATCH)
-        assert (out["trips"][t, 0] == executed).all() and (out["trips"][t, 1] == assigned).all()
-        early += executed < assigned
+        for q in range(len(kept_slots)):
+            executed = _executed(stop_at, sub_of, q, len(seg))
+            trips = out["trips"][t][:3][:, lanes[q]]
+            assert (trips == [[executed], [-(-len(seg) // pk.BATCH)],
+                              [kept_slots[q, :executed * pk.BATCH].sum()]]).all()
+            early += executed < -(-len(seg) // pk.BATCH)
+    for v in ("load", "skip", "power", "alpha"):
+        assert not out[v][:, 2:].any(), v
     assert not out["trans"][:, :4].any() and np.array_equal(out["trans"][:, 4], prod[:, 4])
     assert np.array_equal(out["trips"][:, 4], prod[:, 4])
-    # the batch loop is exercised: several batches, and at 16 px some tiles
-    # saturate before their last one (every 32 px tile has an empty corner)
-    assert out["trips"][:, 1].max() > 1 and (early > 0 or d["ts"] == 32)
+    # the batch loop and the skip are exercised: several batches; at 32 px
+    # slots dropped (at 16 px the sub-tile is the tile, which the binning
+    # culls by the same bound), at 16 px CTAs that saturate early
+    assert out["trips"][:, 1].max() > 1
+    assert dropped > 0 if ts == 32 else early > 0
 
 
 def test_composite_full_matches_jax_pallas(gauss):
@@ -201,6 +258,28 @@ def test_composite_full_matches_jax_pallas(gauss):
                                    err_msg=name)
     for v in pk.PRODUCTION_OUTPUT:
         assert torch.equal(pk.composite_fwd_probe(v, *d["args"]), out), v
+
+
+@pytest.mark.parametrize("ts", [16, 32])
+@pytest.mark.parametrize("renderer, variant", [
+    *(("3dgs", v) for v in pk.PRODUCTION_OUTPUT),
+    *(("2dgs", v) for v in (*pk.SURFEL_PRODUCTION_OUTPUT, *pk.SURFEL_STAGE_ROWS)),
+])
+def test_production_output_variants_are_production(renderer, variant, ts):
+    """Every variant whose output is the production output: its plain
+    version bitwise ``composite_fwd_plain`` / ``surfel_fwd_plain`` (surfel
+    trans / acc: on the rows they reach) on a tiny scene A / A′."""
+    if renderer == "3dgs":
+        args, _, _ = scenes.bench_scene("cpu", ts, 4, n=600, hw=64)
+        ref = kernels.composite_fwd_plain(*args)
+        out = pk.composite_fwd_probe_plain(variant, *args)
+    else:
+        args, _ = scenes.surfel_bench_scene("cpu", "free", ts, 4, n=600, hw=64)
+        ref = surfel_kernels.surfel_fwd_plain(*args)
+        out = pk.surfel_fwd_probe_plain(variant, *args)
+    rows = list(pk.SURFEL_STAGE_ROWS.get(variant, range(ref.shape[1])))
+    assert float(ref[:, rows].abs().max()) > 0
+    assert torch.equal(out[:, rows], ref[:, rows])
 
 
 @pytest.fixture(scope="module", params=[16, 32])
@@ -262,27 +341,36 @@ def _surfel_eval(d, t, seg):
 
 
 def test_surfel_stages_match_numpy(surfels):
-    """load, alpha, geomd, trans and acc against numpy; trans and acc
-    bitwise the production plain rows they reach."""
+    """load, skip, alpha, geomd, trans and acc against numpy over the slots
+    the skip keeps; skip's kept counts and compaction order against a walk
+    of the staging batches; trans and acc bitwise the production plain rows
+    they reach."""
     d = surfels
+    ts = d["ts"]
     out = {v: pk.surfel_fwd_probe(v, *d["args"]).numpy()
-           for v in ("load", "alpha", "geomd", "trans", "acc")}
+           for v in ("load", "skip", "alpha", "geomd", "trans", "acc")}
     prod = surfel_kernels.surfel_fwd_plain(*d["args"]).numpy()
+    a = d["args"]
+    touch = surfel_kernels.subtile_touch(*a[:4], *a[5:]).numpy()
+    lanes, sub_of = _lanes(ts, True), _subtile_of(ts)
     znear, zfar = d["planes"]
     F = zfar / (zfar - znear)
+    dropped = 0
     for t in range(d["tx"] * d["ty"]):
         s, c = d["starts"][t], d["counts"][t]
         seg = d["ids"][s:s + c]
+        kept_slots = touch[:, s:s + c]
         staged = np.concatenate([d["acr"][seg], d["bcr"][seg], d["ccr"][seg],
                                  d["det"][seg, None], d["xy"][seg], d["opa"][seg, None],
                                  d["color"][seg], d["normal"][seg],
                                  (d["rad"][seg] * d["rad"][seg])[:, None]],
                                 axis=1).astype(np.float64)
-        lane = np.arange(len(seg)) % pk.BATCH
-        _within(out["load"][t, 0, :pk.BATCH],
-                np.bincount(lane, staged.sum(1), minlength=pk.BATCH),
-                np.bincount(lane, np.abs(staged).sum(1), minlength=pk.BATCH), "load")
+        _check_checksums(out["load"], t, staged, np.ones_like(kept_slots), lanes,
+                         "load")
+        _check_checksums(out["skip"], t, staged, kept_slots, lanes, "skip")
+        dropped += (~kept_slots).sum()
         inside, alpha, z = _surfel_eval(d, t, seg)
+        inside &= kept_slots[sub_of].T
         hit = inside & (alpha >= f32(1.0 / 255.0))
         a64 = np.where(hit, alpha, 0).astype(np.float64)
         _within(out["alpha"][t, 0], a64.sum(0), a64.sum(0), "surfel alpha")
@@ -300,12 +388,15 @@ def test_surfel_stages_match_numpy(surfels):
         _within(out["acc"][t, :6], wr.sum(0), np.abs(wr).sum(0), "acc rows")
         w64 = w.astype(np.float64)
         _within(out["acc"][t, 9], w64.sum(0), w64.sum(0), "acc wsum")
-    keep = {"trans": [12], "acc": [0, 1, 2, 3, 4, 5, 9, 12]}
-    for v, rows in keep.items():
+    for v in ("load", "skip", "alpha", "geomd"):
+        assert not out[v][:, 2:12].any() and (out[v][:, 12] == 1).all(), v
+    for v, rows in pk.SURFEL_STAGE_ROWS.items():
+        rows = list(rows)
         assert np.array_equal(out[v][:, rows], prod[:, rows]), v
         rest = [r for r in range(13) if r not in rows]
         assert not out[v][:, rest].any(), v
     assert prod[:, 12].min() < 1e-3                     # some pixels saturate
+    assert dropped > 0 or ts == 16       # at 16 px the sub-tile is the tile
 
 
 def test_surfel_full_matches_jax_pallas(surfels):
@@ -361,20 +452,28 @@ TINY = ["--device", "cpu", "--n", "300", "--hw", "64", "--reps", "1"]
 
 
 @pytest.mark.parametrize("tool, stages", [
-    (kernel_break, ["noop", "load", "power", "alpha", "trans", "full", "trips",
-                    "tpb2_bulk"]),
-    (surfel_break, list(surfel_break.LADDER)),
+    (kernel_break, ["noop", "load", "skip", "power", "alpha", "trans", "full",
+                    "trips", "tpb2_bulk"]),
+    (surfel_break, [*surfel_break.LADDER, "noskip"]),
 ])
 def test_breakdown_tools_on_cpu(tool, stages, capsys):
     """The breakdown entry points on a tiny scene A / A′ with ``--device
-    cpu``: one line per stage, in the given order, and a JSON record."""
+    cpu``: one line per stage, in the given order, then ``full`` beside the
+    production kernel, and a JSON record whose work counts grow along the
+    ladder."""
     res = tool.run([*stages, *TINY, "--tile-size", "32"])
     lines = capsys.readouterr().out.splitlines()
     timed = [ln.split()[0] for ln in lines if ln.split() and ln.split()[0] in stages
-             and " ms " in ln]
+             and " ms (+" in ln]
     assert timed == stages
-    assert [r["variant"] for r in res["stages"]] == stages
-    assert all(r["max_abs_err"] == 0 and r["bound_ms"] >= 0 for r in res["stages"])
+    assert any(ln.startswith("full") and "production" in ln for ln in lines)
+    assert set(res["full_vs_production"]) == {"full", "production"}
+    recs = {r["variant"]: r for r in res["stages"]}
+    assert list(recs) == stages
+    assert all(r["max_abs_err"] == 0 and r["bound_ms"] >= 0 for r in recs.values())
+    assert recs["noop"]["ops"] == 0 < recs["load"]["ops"] < recs["full"]["ops"]
+    assert 0 < recs["skip"]["kept"] < recs["load"]["kept"]
+    assert recs["skip"]["predicate_ops"] > 0 == recs["load"]["predicate_ops"]
 
 
 def test_bwd_breakdown_on_cpu(capsys):
@@ -395,3 +494,24 @@ def test_breakdown_tools_need_a_card_by_default(tool):
         pytest.skip("checks the refusal on a machine without a card")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tool.run(["noop"])
+
+
+def test_sass_check_pairs_kernels_across_defaulted_template_parameters():
+    """``tools/sass_check.py`` pairs a parent kernel with the change's of the
+    same symbol or, where the template gained defaulted parameters, with the
+    one kernel whose template arguments extend the parent's; another tile
+    size, mode or parameter list is no counterpart."""
+    head, params = "_ZN7subtile20composite_fwd_kernel", "EvPKfPKiS4_S4_Pfi"
+    sym = lambda args: f"{head}I{args}E{params}"
+    parent = sym("Li32ELb1ELb1E")
+    extended = sym("Li32ELb1ELb1ELi7ELi256ELi1ELb0E")
+    assert sass_check.counterpart(parent, {parent: 1, extended: 1}) == parent
+    assert sass_check.counterpart(parent, {extended: 1,
+                                           sym("Li16ELb1ELb1ELi7ELi256ELi1ELb0E"): 1,
+                                           sym("Li32ELb0ELb1ELi7ELi256ELi1ELb0E"): 1}
+                                  ) == extended
+    assert sass_check.counterpart(parent, {sym("Li32ELb1ELb0ELi7E"): 1}) is None
+    assert sass_check.counterpart(parent, {f"{head}ILi32ELb1ELb1ELi7EEEvPKf": 1}) is None
+    assert sass_check.counterpart(parent, {extended: 1, sym("Li32ELb1ELb1ELi6E"): 1}) is None
+    assert sass_check._spills("0 bytes spill stores, 0 bytes spill loads") is False
+    assert sass_check._spills("12 bytes spill stores, 20 bytes spill loads") is True
