@@ -72,6 +72,7 @@ from ..points.structure import (
 )
 from ..splat.rasterizer import rasterize
 from ..splat.surfel import depth_to_normal, rasterize_surfels, surface_depth
+from ..utils import tracing
 from ..utils.device import resolve_device
 from .backbone import (
     GaussianDecoder,
@@ -294,6 +295,7 @@ class DensifierStage(nn.Module):
                 nn.init.ones_(m.weight)
                 nn.init.zeros_(m.bias)
 
+    @tracing.traced("gd.densifier")
     def forward(self, ps: PointSet, gen: torch.Generator | None = None):
         cfg, s = self.cfg, self.stage
         if s == 0 and cfg.enable_ada_lnnorm:
@@ -548,6 +550,7 @@ class Network(nn.Module):
             scores.append(torch.linalg.vector_norm(g_abs, dim=-1))
         return torch.stack(scores)
 
+    @tracing.traced("gd.forward")
     def forward(self, batch, with_fine: bool = False,
                 generator: torch.Generator | None = None):
         """The JAX ``Network.__call__``; ``self.training`` is its
@@ -558,7 +561,8 @@ class Network(nn.Module):
         V = cfg.n_views
 
         src = batch["tar_rgb"][:, :V].reshape(B * V, H, W, 3)
-        tokens = self.img_encoder(src)                       # (B·V, L, C)
+        with tracing.span("gd.encoder"):
+            tokens = self.img_encoder(src)                   # (B·V, L, C)
         token_hw = math.isqrt(tokens.shape[1])
         feat_hw = tokens.reshape(B * V, token_hw, token_hw, -1)
 
@@ -584,7 +588,8 @@ class Network(nn.Module):
             feat_vol = torch.cat(
                 [feat_vol, ve.expand(B, V, R, R, R, cfg.view_embed_dim)], dim=-1)
 
-        volume_feat = self.vol_decoder(feat_vol)             # (B, (2R')³, 80)
+        with tracing.span("gd.voltx"):
+            volume_feat = self.vol_decoder(feat_vol)         # (B, (2R')³, 80)
         offset, shs_c, scaling_c, rotation_c, opacity_c = self.decoder.coarse(
             volume_feat, cfg.opacity_shift, cfg.scaling_shift)
         half_cell = 0.5 * cfg.scene_size / cfg.n_offset_groups

@@ -30,6 +30,7 @@ import os
 
 import torch
 
+from ..utils import tracing
 from .kernels import composite_bwd, composite_fwd, reduce_slots, transpose_rows
 
 # Per-slot gradient rows -> per-Gaussian sums, as the JAX package's
@@ -97,13 +98,15 @@ class CompositeTiles(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xy, xy_abs, conic, color, opacity, depth, bg, bins, dims,
                 valid):
-        pos = xy if xy_abs is None else xy + xy_abs
-        table = pack_table(pos, conic, color, opacity, depth, valid)
-        sorted_ids, _, _, tile_starts, tile_counts, _ = bins
-        out = composite_fwd(table, sorted_ids, tile_starts, tile_counts, *dims)
+        with tracing.span("gd.composite"):
+            pos = xy if xy_abs is None else xy + xy_abs
+            table = pack_table(pos, conic, color, opacity, depth, valid)
+            sorted_ids, _, _, tile_starts, tile_counts, _ = bins
+            out = composite_fwd(table, sorted_ids, tile_starts, tile_counts, *dims)
+            images = _images(out, bg, *dims)
         ctx.save_for_backward(table, out, bg)
         ctx.bins, ctx.dims, ctx.want_abs = bins, dims, xy_abs is not None
-        return _images(out, bg, *dims)
+        return images
 
     @staticmethod
     def backward(ctx, g_img, g_alpha, g_dep):
@@ -271,14 +274,16 @@ class CompositeTilesSel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xy, conic, color, opacity, depth, bg, gt, bins, dims,
                 valid):
-        table = pack_table(xy, conic, color, opacity, depth, valid)
-        sorted_ids, _, _, tile_starts, tile_counts, _ = bins
-        out = composite_fwd(table, sorted_ids, tile_starts, tile_counts, *dims)
-        image, alpha, dep = _images(out, bg, *dims)
-        cot = (mse_image_cotangent(image, gt.to(torch.float32)),
-               torch.zeros_like(alpha), torch.zeros_like(dep))
-        sel_abs = composite_backward(table, out, bg, cot, bins, dims,
-                                     "selonly")[1]
+        with tracing.span("gd.composite"):
+            table = pack_table(xy, conic, color, opacity, depth, valid)
+            sorted_ids, _, _, tile_starts, tile_counts, _ = bins
+            out = composite_fwd(table, sorted_ids, tile_starts, tile_counts, *dims)
+            image, alpha, dep = _images(out, bg, *dims)
+        with tracing.span("gd.sel_bwd"):
+            cot = (mse_image_cotangent(image, gt.to(torch.float32)),
+                   torch.zeros_like(alpha), torch.zeros_like(dep))
+            sel_abs = composite_backward(table, out, bg, cot, bins, dims,
+                                         "selonly")[1]
         ctx.mark_non_differentiable(sel_abs)
         ctx.save_for_backward(table, out, bg)
         ctx.bins, ctx.dims = bins, dims

@@ -20,6 +20,7 @@ import dataclasses
 import torch
 
 from ..core.transforms import normalize_quat
+from ..utils import tracing
 from .binning import bin_gaussians
 from .composite import composite_tiles, composite_tiles_sel
 from .projection import project_gaussians
@@ -36,6 +37,7 @@ class RasterizeOutput:
                                          # (only with rasterize(sel_gt=...))
 
 
+@tracing.traced("gd.render")
 def rasterize(means3d, shs, opacities, scales, rotations, camera, bg,
               sh_degree: int, tile_size: int = 32, max_tiles: int = 16,
               max_per_tile: int = 4096, max_pairs: int | None = None,
@@ -59,18 +61,22 @@ def rasterize(means3d, shs, opacities, scales, rotations, camera, bg,
     H, W = camera.height, camera.width
     max_per_tile = min(max_per_tile, N * max_tiles)
 
-    proj = project_gaussians(means3d, shs, opacities, camera, sh_degree,
-                             scales, normalize_quat(rotations), screen_offset)
-    bins = bin_gaussians(proj, H, W, tile_size=tile_size, max_tiles=max_tiles,
-                         max_pairs=max_pairs, enum_tiles=enum_tiles)
+    with tracing.span("gd.project"):
+        proj = project_gaussians(means3d, shs, opacities, camera, sh_degree,
+                                 scales, normalize_quat(rotations), screen_offset)
     opacity_eff = torch.where(proj.valid, proj.opacity,
                               torch.zeros_like(proj.opacity))
-
-    # the per-tile slot cap is a shared semantic: clamp counts once so every
-    # path composites the same front-most max_per_tile slots per tile, and
-    # count the truncation in ``overflow``
-    tile_counts = torch.clamp(bins.tile_counts, max=max_per_tile)
-    cap_overflow = (bins.tile_counts - tile_counts).sum().to(torch.int32)
+    with tracing.span("gd.bin"):
+        bins = bin_gaussians(proj, H, W, tile_size=tile_size, max_tiles=max_tiles,
+                             max_pairs=max_pairs, enum_tiles=enum_tiles)
+        # the per-tile slot cap is a shared semantic: clamp counts once so
+        # every path composites the same front-most max_per_tile slots per
+        # tile, and count the truncation in ``overflow``
+        tile_counts = torch.clamp(bins.tile_counts, max=max_per_tile)
+        cap_overflow = (bins.tile_counts - tile_counts).sum().to(torch.int32)
+        overflow = bins.overflow + cap_overflow
+        tracing.count("pairs", tile_counts)
+        tracing.count("pairs_dropped", overflow)
     seg = (bins.sorted_ids, bins.sorted_o, bins.depth_order, bins.tile_starts,
            tile_counts, N * max_tiles)
     dims = (bins.tiles_x, bins.tiles_y, tile_size)
@@ -88,7 +94,7 @@ def rasterize(means3d, shs, opacities, scales, rotations, camera, bg,
         alpha=alpha[:H, :W],
         depth=depth[:H, :W],
         radii=proj.radius,
-        overflow=bins.overflow + cap_overflow,
+        overflow=overflow,
         sel_abs=sel_abs,
     )
 

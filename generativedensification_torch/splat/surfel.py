@@ -33,6 +33,7 @@ import torch
 
 from ..core.sh import eval_sh_color
 from ..core.transforms import normalize_quat
+from ..utils import tracing
 from .binning import bin_gaussians
 from .composite import _tile, _untile, mse_image_cotangent, slots_to_gaussians
 from .projection import ProjectedGaussians
@@ -186,14 +187,16 @@ class CompositeSurfels(torch.autograd.Function):
     @staticmethod
     def forward(ctx, acr, bcr, ccr, det, xy, rad, color, opacity, normal, bg,
                 planes, bins, dims, n_slots):
-        table = pack_surfel_table(acr, bcr, ccr, det, xy, rad, color, opacity,
-                                  normal)
-        sorted_ids, _, _, tile_starts, tile_counts = bins
-        out = surfel_fwd(table, sorted_ids, tile_starts, tile_counts, planes,
-                         *dims)
+        with tracing.span("gd.composite"):
+            table = pack_surfel_table(acr, bcr, ccr, det, xy, rad, color, opacity,
+                                      normal)
+            sorted_ids, _, _, tile_starts, tile_counts = bins
+            out = surfel_fwd(table, sorted_ids, tile_starts, tile_counts, planes,
+                             *dims)
+            maps = _maps(out, bg, *dims)
         ctx.save_for_backward(table, out, bg, planes)
         ctx.bins, ctx.dims, ctx.n_slots = bins, dims, n_slots
-        return _maps(out, bg, *dims)
+        return maps
 
     @staticmethod
     def backward(ctx, *g_maps):
@@ -291,16 +294,18 @@ class CompositeSurfelsSel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, acr, bcr, ccr, det, xy, rad, color, opacity, normal, bg,
                 planes, gt, bins, dims, n_slots):
-        table = pack_surfel_table(acr, bcr, ccr, det, xy, rad, color, opacity,
-                                  normal)
-        sorted_ids, _, _, tile_starts, tile_counts = bins
-        out = surfel_fwd(table, sorted_ids, tile_starts, tile_counts, planes,
-                         *dims)
-        maps = _maps(out, bg, *dims)
-        cot = (mse_image_cotangent(maps[0], gt.to(torch.float32)),
-               None, None, None, None, None)
-        _, sel_abs = composite_surfels_backward(table, out, bg, cot, planes,
-                                                bins, dims, n_slots, "selonly")
+        with tracing.span("gd.composite"):
+            table = pack_surfel_table(acr, bcr, ccr, det, xy, rad, color, opacity,
+                                      normal)
+            sorted_ids, _, _, tile_starts, tile_counts = bins
+            out = surfel_fwd(table, sorted_ids, tile_starts, tile_counts, planes,
+                             *dims)
+            maps = _maps(out, bg, *dims)
+        with tracing.span("gd.sel_bwd"):
+            cot = (mse_image_cotangent(maps[0], gt.to(torch.float32)),
+                   None, None, None, None, None)
+            _, sel_abs = composite_surfels_backward(table, out, bg, cot, planes,
+                                                    bins, dims, n_slots, "selonly")
         ctx.mark_non_differentiable(sel_abs)
         ctx.save_for_backward(table, out, bg, planes)
         ctx.bins, ctx.dims, ctx.n_slots = bins, dims, n_slots
@@ -351,26 +356,31 @@ def surfel_inputs(means3d, shs, opacities, scales2d, rotations, camera,
     (the part of ``rasterize_surfels`` before compositing)."""
     N = means3d.shape[0]
     max_per_tile = min(max_per_tile, N * max_tiles)
-    M, n_view, xy, depth, color, radius, valid = _surfel_setup(
-        means3d, scales2d, rotations, opacities, shs, camera, sh_degree)
-    acr, bcr, ccr, det = _surfel_coeffs(M)
-    # The compositor cuts every surfel at its screen radius R, so an
-    # isotropic conic lam = 2·tau/R² makes bin_gaussians' ellipse bound fire
-    # exactly at screen distance d > R; the floor on tau keeps lam a valid
-    # conic for surfels that can contribute nothing (opacity <= 1/255), so
-    # that all their tiles are culled.
-    opacity_f = opacities.to(torch.float32)
-    tau = torch.log(torch.clamp(opacity_f, min=1e-12) * 255.0)
-    lam = 2.0 * torch.clamp(tau, min=1e-6) / torch.clamp(radius, min=1.0) ** 2
-    conic_circ = torch.stack([lam, torch.zeros_like(lam), lam], dim=-1)
+    with tracing.span("gd.project"):
+        M, n_view, xy, depth, color, radius, valid = _surfel_setup(
+            means3d, scales2d, rotations, opacities, shs, camera, sh_degree)
+        acr, bcr, ccr, det = _surfel_coeffs(M)
+        # The compositor cuts every surfel at its screen radius R, so an
+        # isotropic conic lam = 2·tau/R² makes bin_gaussians' ellipse bound
+        # fire exactly at screen distance d > R; the floor on tau keeps lam a
+        # valid conic for surfels that can contribute nothing (opacity <=
+        # 1/255), so that all their tiles are culled.
+        opacity_f = opacities.to(torch.float32)
+        tau = torch.log(torch.clamp(opacity_f, min=1e-12) * 255.0)
+        lam = 2.0 * torch.clamp(tau, min=1e-6) / torch.clamp(radius, min=1.0) ** 2
+        conic_circ = torch.stack([lam, torch.zeros_like(lam), lam], dim=-1)
     proj = ProjectedGaussians(xy=xy, depth=depth, conic=conic_circ, color=color,
                               opacity=opacity_f, radius=radius, valid=valid)
-    bins = bin_gaussians(proj, camera.height, camera.width, tile_size=tile_size,
-                         max_tiles=max_tiles, enum_tiles=enum_tiles)
     opacity_eff = torch.where(valid, opacity_f, torch.zeros_like(opacity_f))
-    # the per-tile cap clamps the counts once (rasterizer.py rationale)
-    tile_counts = torch.clamp(bins.tile_counts, max=max_per_tile)
-    cap_overflow = (bins.tile_counts - tile_counts).sum().to(torch.int32)
+    with tracing.span("gd.bin"):
+        bins = bin_gaussians(proj, camera.height, camera.width, tile_size=tile_size,
+                             max_tiles=max_tiles, enum_tiles=enum_tiles)
+        # the per-tile cap clamps the counts once (rasterizer.py rationale)
+        tile_counts = torch.clamp(bins.tile_counts, max=max_per_tile)
+        cap_overflow = (bins.tile_counts - tile_counts).sum().to(torch.int32)
+        overflow = bins.overflow + cap_overflow
+        tracing.count("pairs", tile_counts)
+        tracing.count("pairs_dropped", overflow)
     planes = torch.stack([torch.as_tensor(camera.znear), torch.as_tensor(camera.zfar)]
                          ).to(device=xy.device, dtype=torch.float32)
     return SurfelInputs(
@@ -381,10 +391,11 @@ def surfel_inputs(means3d, shs, opacities, scales2d, rotations, camera,
         dims=(bins.tiles_x, bins.tiles_y, tile_size),
         n_slots=N * max_tiles,
         radius=radius,
-        overflow=bins.overflow + cap_overflow,
+        overflow=overflow,
     )
 
 
+@tracing.traced("gd.render")
 def rasterize_surfels(means3d, shs, opacities, scales2d, rotations, camera, bg,
                       sh_degree: int = 1, tile_size: int = 32,
                       max_tiles: int = 16, max_per_tile: int = 4096,

@@ -15,7 +15,10 @@ every 20 micro-steps with ``lr`` and the loader-attached ``samples_per_s``,
 the overflow alarm, image panels every ``logger.image_interval`` steps,
 TensorBoard (tensorboardX) or wandb when installed, resume from
 ``model.ckpt_path``, ``tpu.nan_check`` and a ``torch.profiler`` trace of
-micro-step 20 into ``tpu.profile_dir``.
+micro-step 20 into ``tpu.profile_dir``.  That trace shows the forward's
+``gd.*`` ranges (``utils/tracing.py``: the encoder, the volume transformer,
+each densifier stage, and each render's projection, binning, compositor and
+selection backward) beside the ``aten::`` ops.
 
 It runs on the card (``device=None``); the tests pass ``device="cpu"``.
 Under ``torchrun`` (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
