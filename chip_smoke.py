@@ -31,6 +31,15 @@ Drives ``generativedensification_torch`` only (no JAX):
    backward against its plain version in all three modes (each per-slot
    gradient array scaled by its max |value|, atol 5e-5), checks that two
    launches give bitwise the same output, and times each mode;
+4a. pre-pass phase (``csrc/prepass.cu``: the projection and the tile
+   binning, which replace no TPU kernel): on the model's coarse and fine
+   Gaussians in view 0 and on ``tools/scenes.py``'s pre-pass scene at the
+   same counts, the binning kernels bitwise against the plain chain, the
+   projection kernel against the plain chain (bits and largest relative
+   difference per output, ``valid`` / ``radius`` flips), one view's
+   launches, and the pre-pass timed both ways in turns (device and host ms)
+   with each kernel's device ms beside its bound; every later phase's
+   launch totals count each render's pre-pass (``expect_launches``);
 4b. probe phase (kernels #1 and #3 by stage, TPU kernels #7-#10: every
    variant an instantiation of the production sub-tile body): the
    breakdown entry points ``tools.kernel_break`` (every variant of
@@ -165,6 +174,11 @@ GRAD_ATOL = 5e-5              # per array, after scaling by its max |value|
 # (on an NVIDIA H100 80GB HBM3 at 700 W, card vs CPU: 0.09% of depth pixels,
 # 0.61% of depth-normal pixels)
 SURFEL_KNIFE_EDGE_SHARE = 1e-2
+# the projection kernel against the plain chain (tests/test_torch_prepass.py):
+# each output's largest difference over the plain chain's largest |value|,
+# and the share of Gaussians whose ``valid`` or ``radius`` may flip
+PROJECT_RTOL = 1e-5
+PROJECT_FLIP_SHARE = 1e-4
 # the bf16 serving forward's fine image against the f32 one on the same
 # weights and batch (32.25 dB on an NVIDIA H100 80GB HBM3 at 700 W); a bf16
 # path that rounds where it must not, or computes garbage, falls far below
@@ -2050,8 +2064,187 @@ def overfit_phase() -> dict:
 
 
 def expect_launches(kernels, **launches):
-    """Launches per call: the given kernels, every other one 0."""
-    return {**dict.fromkeys(kernels.launch_counts, 0), **launches}
+    """Launches per call: the given kernels, every other one 0, and each
+    render's pre-pass: a 3DGS render (one ``composite_fwd``) launches each
+    of ``project``, ``depth_rank``, ``tile_keys`` and ``tile_ranges`` once,
+    a 2DGS render (one ``surfel_fwd``) the three binning kernels."""
+    n3, n2 = launches.get("composite_fwd", 0), launches.get("surfel_fwd", 0)
+    prepass = dict(project=n3, depth_rank=n3 + n2, tile_keys=n3 + n2,
+                   tile_ranges=n3 + n2)
+    return {**dict.fromkeys(kernels.launch_counts, 0), **prepass, **launches}
+
+
+def render_inputs(pkg, cam) -> tuple:
+    """``rasterize``'s inputs for batch element 0 of a ``render_pkg`` entry
+    (coarse, or fine with its validity), activated as ``_render_views``
+    does, with the camera ``cam``."""
+    import torch
+
+    centers, shs, opacity, scaling, rotation = pkg[:5]
+    n = centers.shape[1]
+    opa = torch.sigmoid(opacity[0].reshape(-1))
+    if len(pkg) > 5:
+        opa = torch.where(pkg[5][0], opa, torch.zeros_like(opa))
+    return (centers[0], shs[0].reshape(n, -1, 3), opa, torch.exp(scaling[0]),
+            rotation[0], cam)
+
+
+PREPASS_KERNELS = ("project", "depth_rank", "tile_keys", "tile_ranges")
+
+
+def orders_measured() -> bool:
+    """Whether the libraries are those on which the projection kernel's
+    summation orders were measured (torch 2.11 with CUDA 12.8: cuBLAS's GEMM
+    for the plain chain's two 4-term products, ``linalg.norm``'s lane
+    tree): only there is it held bit for bit to the plain chain."""
+    import torch
+
+    return torch.__version__.startswith("2.11.") and torch.version.cuda == "12.8"
+
+
+def prepass_bytes(n: int, sh_coeffs: int, max_tiles: int) -> dict:
+    """Bytes each pre-pass kernel must move for one view of ``n`` Gaussians
+    (each input read once, each output written once): its roofline bound
+    at 3.35 TB/s; the work is a few dozen operations a byte short of the
+    f32 peak."""
+    return {"project": n * (12 + 12 * sh_coeffs + 4 + 12 + 16 + 45),
+            "depth_rank": n * 16,
+            "tile_keys": n * (33 + 4 * max_tiles),
+            "tile_ranges": n * max_tiles * 25}
+
+
+def prepass_phase(views: dict, tile_size: int, max_tiles: int,
+                  max_per_tile: int) -> dict:
+    """The renders' pre-pass (``csrc/prepass.cu``) at the serving shapes,
+    ``views`` {label: ``rasterize``'s inputs of one view}: the binning kernels
+    bitwise against ``bin_gaussians_plain`` (every ``TileBins`` field, the
+    capped counts, the total overflow) from the plain projection and from the
+    projection kernel's; the projection kernel against ``project_gaussians``
+    (outputs that differ in any bit, the largest difference over the largest
+    value, ``valid`` / ``radius`` flips), failing above ``PROJECT_RTOL`` /
+    ``PROJECT_FLIP_SHARE`` and, at the model's views on the libraries the
+    kernel's summation orders were measured on (``orders_measured``), on any
+    differing bit; one view's pre-pass timed both ways in turns (kernels,
+    plain, plain, kernels; median device ms of 20 views by CUDA events, host
+    ms of their enqueue) and each kernel's device ms (the profiler); the
+    launches of one view."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from generativedensification_torch.splat import binning, kernels, projection
+
+    def binned_as_plain(proj, cap):
+        bins, counts, total = binning.bin_and_cap(proj, H, W, tile_size, max_tiles, cap)
+        plain = binning.bin_gaussians_plain(proj, H, W, tile_size, max_tiles)
+        counts_ref = torch.clamp(plain.tile_counts, max=cap)
+        same = all(torch.equal(getattr(bins, f), getattr(plain, f)) for f in (
+            "sorted_ids", "sorted_o", "sorted_valid", "sorted_rank", "depth_order",
+            "tile_starts", "tile_counts", "overflow"))
+        return same and torch.equal(counts, counts_ref) and int(total) == int(
+            plain.overflow) + int((plain.tile_counts - counts_ref).sum())
+
+    recs = {}
+    for label, (means, shs, opa, scales, quats, cam) in views.items():
+        H, W = cam.height, cam.width
+        n = means.shape[0]
+        deg = int(round(shs.shape[1] ** 0.5)) - 1
+        cap = min(max_per_tile, n * max_tiles)
+        ref, ref_eff = projection._project_plain(cam, deg, means, shs, opa, scales,
+                                                 quats, None)
+        if not binned_as_plain(ref, cap):
+            fail(f"prepass ({label}): the binning kernels differ from the plain chain "
+                 "on the plain projection")
+        kernels.reset_launch_counts()
+        proj, eff = projection.project(means, shs, opa, cam, deg, scales, quats)
+        bins, counts, total = binning.bin_and_cap(proj, H, W, tile_size, max_tiles, cap)
+        torch.cuda.synchronize()
+        launches = {k: kernels.launch_counts[k] for k in PREPASS_KERNELS}
+        if launches != dict.fromkeys(PREPASS_KERNELS, 1):
+            fail(f"prepass ({label}): one view launched {launches}")
+        if not binned_as_plain(proj, cap):
+            fail(f"prepass ({label}): the binning kernels differ from the plain chain "
+                 "on the projection kernel's output")
+        both = proj.valid & ref.valid
+        diff = {}
+        for name, a, b, rows in (("xy", proj.xy, ref.xy, None),
+                                 ("depth", proj.depth, ref.depth, None),
+                                 ("conic", proj.conic, ref.conic, both),
+                                 ("color", proj.color, ref.color, None),
+                                 ("opacity_eff", eff, ref_eff, both)):
+            bits = int((a != b).any(-1).sum() if a.dim() > 1 else (a != b).sum())
+            if rows is not None:
+                a, b = a[rows], b[rows]
+            rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            diff[name] = dict(bits=bits, rel=rel)
+            if not rel <= PROJECT_RTOL:
+                fail(f"prepass ({label}): the projection kernel's {name} differs by "
+                     f"{rel:.3g} of its largest value (limit {PROJECT_RTOL})")
+        flips = dict(valid=int((proj.valid != ref.valid).sum()),
+                     radius=int((proj.radius[both] != ref.radius[both]).sum()))
+        if sum(flips.values()) > PROJECT_FLIP_SHARE * n:
+            fail(f"prepass ({label}): the projection kernel flips {flips} of {n} "
+                 f"Gaussians (limit {PROJECT_FLIP_SHARE} of them)")
+        bitwise = not any(d["bits"] for d in diff.values()) and not any(flips.values())
+        if label.startswith("model_") and orders_measured() and not bitwise:
+            fail(f"prepass ({label}): the projection kernel is not bit for bit the "
+                 f"plain chain's on the libraries its orders were measured on: "
+                 f"{json.dumps(diff)}, flips {flips}")
+
+        def kern():
+            p, _ = projection.project(means, shs, opa, cam, deg, scales, quats)
+            binning.bin_and_cap(p, H, W, tile_size, max_tiles, cap)
+
+        def chain():
+            p, _ = projection._project_plain(cam, deg, means, shs, opa, scales, quats,
+                                             None)
+            b = binning.bin_gaussians_plain(p, H, W, tile_size, max_tiles)
+            c = torch.clamp(b.tile_counts, max=cap)
+            return b.overflow + (b.tile_counts - c).sum().to(torch.int32)
+
+        def timed(fn, reps=20):
+            fn()
+            torch.cuda.synchronize()
+            dev_ms, host_ms = [], []
+            for _ in range(reps):
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True)
+                t0 = time.perf_counter()
+                e0.record()
+                fn()
+                e1.record()
+                host_ms.append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+                dev_ms.append(e0.elapsed_time(e1))
+            return statistics.median(dev_ms), statistics.median(host_ms)
+
+        runs = {"kernels": [], "plain": []}
+        for which in ("kernels", "plain", "plain", "kernels"):
+            runs[which].append(timed(kern if which == "kernels" else chain))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                kern()
+            torch.cuda.synchronize()
+        per_kernel = {}
+        for ev in prof.key_averages():
+            for k in PREPASS_KERNELS:
+                if f"{k}_kernel" in ev.key and ev.device_time_total > 0:
+                    per_kernel[k] = ev.device_time_total / ev.count / 1e3
+        sorts = sum(ev.device_time_total for ev in prof.key_averages()
+                    if "RadixSort" in ev.key) / 10 / 1e3
+        bound = {k: b / 3.35e12 * 1e3 for k, b in prepass_bytes(
+            n, shs.shape[1], max_tiles).items()}
+        rec = dict(n=n, same_bits_binning=True, projection=diff, flips=flips,
+                   projection_bitwise=bitwise, orders_measured=orders_measured(),
+                   launches=launches,
+                   device_ms=statistics.median(r[0] for r in runs["kernels"]),
+                   host_ms=statistics.median(r[1] for r in runs["kernels"]),
+                   plain_device_ms=statistics.median(r[0] for r in runs["plain"]),
+                   plain_host_ms=statistics.median(r[1] for r in runs["plain"]),
+                   kernel_ms=per_kernel, sorts_ms=sorts, bound_ms=bound,
+                   pairs=int(counts.sum()), overflow=int(total))
+        print(f"[prepass {label}] {json.dumps(rec)}")
+        recs[label] = rec
+    return recs
 
 
 def probe_phase() -> dict:
@@ -2205,6 +2398,16 @@ def main() -> int:
         bwd_recs_warm = bwd_records("model_512_262k_view0_warmup", args,
                                     batch["tar_rgb"][0, 0])
         del args
+
+        # -- the renders' pre-pass kernels at the serving shapes: the
+        # model's coarse and fine Gaussians in view 0, and the pre-pass
+        # scene at the coarse and fine counts
+        views = {"model_coarse_view0": render_inputs(out["render_pkg"][0], cam),
+                 "model_fine_view0": render_inputs(out["render_pkg"][1], cam)}
+        for n in (n_coarse, n_fine):
+            views[f"scene_{n}"] = scenes.prepass_scene(dev, n, HW)
+        prepass = prepass_phase(views, cfg.tile_size, cfg.max_tiles, cfg.max_per_tile)
+        del views
 
         # -- probes: the stage breakdowns of kernels #1 and #3 (#7-#10)
         probes = probe_phase()
@@ -2465,6 +2668,25 @@ def main() -> int:
             "bound_by": r["bound_by"],
             "library_ms": None,
         })
+    # the pre-pass kernels replace no TPU kernel (XLA fuses the projection
+    # and the binning there); at the fine Gaussians of view 0, the plain
+    # time that of the whole chain the four replace
+    fine_pre = prepass["model_fine_view0"]
+    for name in PREPASS_KERNELS:
+        recs.append({
+            "name": name,
+            "route": "cuda",
+            "source": "generativedensification_torch/csrc/prepass.cu",
+            "replaces": "none: XLA fused jnp code on the TPU",
+            "launches": launches_f[name],
+            "max_abs_err": 0.0 if name != "project" else max(
+                d["rel"] for d in fine_pre["projection"].values()),
+            "ms": fine_pre["kernel_ms"].get(name),
+            "plain_ms": fine_pre["plain_device_ms"],
+            "bound_ms": fine_pre["bound_ms"][name],
+            "bound_by": "bytes",
+            "library_ms": None,
+        })
     print(json.dumps({
         "coarse": {"forward_ms": coarse_ms, "forward_runs_ms": times_c,
                    "launches": launches_c, "breakdown_ms": split_c,
@@ -2482,7 +2704,7 @@ def main() -> int:
         "train": train, "bf16": bf16, "cli": cli, "eval": evals,
         "eval_full": eval_full, "residual": residual, "overfit": overfit, "tiny": tiny,
         "pyyaml": has_yaml,
-        "scenes": [bench_rec, model_rec, warm_rec],
+        "scenes": [bench_rec, model_rec, warm_rec], "prepass": prepass,
         "composite_bwd": {"A": bwd_recs_a, "B": bwd_recs, "B_warmup": bwd_recs_warm},
         "adversarial": adversarial,
         "surfel_scenes": surfel_scenes, "surfel_bwd": surfel_bwd, "probes": probes}))

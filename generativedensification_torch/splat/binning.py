@@ -11,6 +11,15 @@ budget semantics so the same projected inputs give the same integer arrays:
     tile's segment is front-to-back,
   * segment starts come from ``searchsorted`` over the sorted tile ids,
   * dropped (gaussian, tile) pairs are counted in ``overflow``.
+
+``bin_gaussians_plain`` is the op chain.  ``bin_and_cap`` is the entry: it
+runs the chain for CPU tensors and, for tensors on the card, the pre-pass
+kernels of ``csrc/prepass.cu`` (``depth_rank``, ``tile_keys``,
+``tile_ranges``: they replace no TPU kernel; XLA fuses the chain there,
+eager PyTorch launched ~100 ops a view) around the same two stable library
+sorts: the same integer arrays, bit for bit.  It also clamps the tile counts
+to the per-tile cap and totals the overflow, which on the card the last
+kernel does.  ``bin_gaussians`` is ``bin_and_cap`` with no cap.
 """
 
 from __future__ import annotations
@@ -19,9 +28,12 @@ import dataclasses
 
 import torch
 
+from ..utils import tracing
+from .kernels import MAIN_KERNELS, build, launch_counts
 from .projection import ProjectedGaussians
 
 DEAD_KEY = 2**31 - 1
+NO_CAP = 2**31 - 1      # a per-tile cap that clamps nothing
 
 
 @dataclasses.dataclass
@@ -48,12 +60,145 @@ def _next_pow2(n: int) -> int:
     return p
 
 
+def _grid(N: int, height: int, width: int, tile_size: int) -> tuple:
+    """(tiles_x, tiles_y, num_tiles, N_pow2); raises where the int32 key
+    would overflow."""
+    tiles_x = -(-width // tile_size)
+    tiles_y = -(-height // tile_size)
+    n_pow2 = _next_pow2(N)
+    if tiles_x * tiles_y * n_pow2 >= 2**31:
+        raise ValueError("int32 key overflow; shrink tiles or N")
+    return tiles_x, tiles_y, tiles_x * tiles_y, n_pow2
+
+
 def bin_gaussians(proj: ProjectedGaussians, height: int, width: int,
                   tile_size: int = 32, max_tiles: int = 16,
                   max_pairs: int | None = None,
                   enum_tiles: int | None = None) -> TileBins:
     """Bin one view's projected Gaussians into per-tile depth-ordered
-    segments (the JAX docstring carries the culling derivation)."""
+    segments: ``bin_and_cap``'s bins with no per-tile cap."""
+    return bin_and_cap(proj, height, width, tile_size, max_tiles, NO_CAP,
+                       max_pairs, enum_tiles)[0]
+
+
+def bin_and_cap(proj: ProjectedGaussians, height: int, width: int,
+                tile_size: int, max_tiles: int, max_per_tile: int,
+                max_pairs: int | None = None,
+                enum_tiles: int | None = None) -> tuple:
+    """The renderers' binning of one view: (bins, the tile counts clamped
+    to ``max_per_tile``, the overflow of the budgets and the cap together).
+    The per-tile slot cap is a shared semantic: the counts are clamped once,
+    so that every path composites the same front-most ``max_per_tile``
+    slots of each tile, and the truncation counts in the overflow.  Counts
+    ``pairs`` (the clamped counts) and ``pairs_dropped`` (that overflow),
+    and ``prepass_kernel_views`` where the kernels binned."""
+    if proj.xy.device.type == "cpu":
+        bins = bin_gaussians_plain(proj, height, width, tile_size, max_tiles,
+                                   max_pairs, enum_tiles)
+        tile_counts = torch.clamp(bins.tile_counts, max=max_per_tile)
+        cap_overflow = (bins.tile_counts - tile_counts).sum().to(torch.int32)
+        overflow = bins.overflow + cap_overflow
+    else:
+        bins, tile_counts, overflow = _bin_kernels(
+            proj, height, width, tile_size, max_tiles, max_pairs, enum_tiles,
+            max_per_tile)
+        tracing.count("prepass_kernel_views", 1)
+    tracing.count("pairs", tile_counts)
+    tracing.count("pairs_dropped", overflow)
+    return bins, tile_counts, overflow
+
+
+def _bin_kernels(proj: ProjectedGaussians, height: int, width: int,
+                 tile_size: int, max_tiles: int, max_pairs: int | None,
+                 enum_tiles: int | None, max_per_tile: int) -> tuple:
+    """``bin_gaussians_plain`` on the card: (TileBins, the counts clamped to
+    ``max_per_tile``, binning + cap overflow).  Launches ``depth_rank``,
+    ``tile_keys`` and ``tile_ranges`` once each around the chain's two
+    stable sorts (the depth sort's key, depth where valid else +inf, one
+    elementwise op); the ``max_pairs`` budget keeps the chain's rank-ordered
+    cumsum between ``tile_keys`` and the key sort.  Reads nothing back."""
+    i32, f32 = torch.int32, torch.float32
+    dev = proj.xy.device
+    if dev.type != "cuda":
+        raise ValueError(f"the binning kernels: unsupported device {dev}")
+    N = proj.xy.shape[0]
+    tiles_x, tiles_y, num_tiles, n_pow2 = _grid(N, height, width, tile_size)
+    E = max_tiles if enum_tiles is None else max(enum_tiles, max_tiles)
+    f = lambda t: t.detach().to(f32).contiguous()
+    xy, radius, conic, opacity = f(proj.xy), f(proj.radius), f(proj.conic), f(proj.opacity)
+    valid = proj.valid.contiguous()
+    depth_key = torch.where(valid, proj.depth.detach().to(f32), float("inf"))
+    lib = build(MAIN_KERNELS)["prepass"].lib
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    e = lambda shape, dtype=i32: torch.empty(shape, dtype=dtype, device=dev)
+
+    def launch(name, *args):
+        with torch.cuda.device(dev):
+            err = getattr(lib, f"gd_{name}")(*args, stream)
+        if err != 0:
+            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        launch_counts[name] += 1
+
+    # global front-to-back rank (culled last) from the chain's STABLE sort;
+    # counters: [0] the binning overflow, [1] tile_ranges' finished blocks
+    order64 = torch.sort(depth_key, stable=True).indices
+    order, rank, counters = e(N), e(N), e(2, torch.int64)
+    launch("depth_rank", order64.data_ptr(), order.data_ptr(), rank.data_ptr(), N,
+           counters.data_ptr())
+
+    keys = e((max_tiles, N))
+    pairs_budget = max_pairs is not None and max_pairs < N * max_tiles
+    n_slots = e(N) if pairs_budget else None
+    if N:
+        launch("tile_keys", xy.data_ptr(), radius.data_ptr(), conic.data_ptr(),
+               opacity.data_ptr(), valid.data_ptr(), rank.data_ptr(), keys.data_ptr(),
+               None if n_slots is None else n_slots.data_ptr(), counters.data_ptr(),
+               N, tiles_x, tiles_y, tile_size, max_tiles, E, n_pow2)
+    if pairs_budget:
+        # drop the pairs of the globally farthest gaussians first
+        P = min(-(-int(max_pairs) // 1024) * 1024, N * max_tiles)
+        per_rank = n_slots[order.long()]
+        keep_rank = torch.cumsum(per_rank, 0) <= P
+        kept = torch.where(keep_rank, per_rank, torch.zeros_like(per_rank)).sum()
+        counters[0].add_(n_slots.sum() - kept)
+        keys = torch.where(keep_rank[rank.long()][None, :], keys, DEAD_KEY)
+    else:
+        P = N * max_tiles
+
+    # stable: live keys are unique; dead slots keep slot order
+    sorted_keys, perm = torch.sort(keys.reshape(-1), stable=True)
+    sorted_ids, sorted_o, sorted_rank = e(P), e(P), e(P)
+    sorted_valid = e(P, torch.bool)
+    starts, counts, capped = e(num_tiles + 1), e(num_tiles), e(num_tiles)
+    overflow, overflow_total = e(()), e(())
+    launch("tile_ranges", sorted_keys.data_ptr(), perm.data_ptr(), sorted_ids.data_ptr(),
+           sorted_o.data_ptr(), sorted_rank.data_ptr(), sorted_valid.data_ptr(),
+           starts.data_ptr(), counts.data_ptr(), capped.data_ptr(), overflow.data_ptr(),
+           overflow_total.data_ptr(), counters.data_ptr(), P, N, n_pow2, num_tiles,
+           max_per_tile)
+    bins = TileBins(
+        sorted_ids=sorted_ids,
+        sorted_o=sorted_o,
+        sorted_valid=sorted_valid,
+        sorted_rank=sorted_rank,
+        depth_order=order,
+        tile_starts=starts[:num_tiles],
+        tile_counts=counts,
+        overflow=overflow,
+        tiles_x=tiles_x,
+        tiles_y=tiles_y,
+        tile_size=tile_size,
+    )
+    return bins, capped, overflow_total
+
+
+def bin_gaussians_plain(proj: ProjectedGaussians, height: int, width: int,
+                        tile_size: int = 32, max_tiles: int = 16,
+                        max_pairs: int | None = None,
+                        enum_tiles: int | None = None) -> TileBins:
+    """Bin one view's projected Gaussians into per-tile depth-ordered
+    segments with the op chain (the JAX docstring carries the culling
+    derivation)."""
     i32, f32 = torch.int32, torch.float32
     xy = proj.xy.detach()
     radius = proj.radius.detach()
@@ -64,12 +209,7 @@ def bin_gaussians(proj: ProjectedGaussians, height: int, width: int,
     dev = xy.device
 
     N = xy.shape[0]
-    tiles_x = -(-width // tile_size)
-    tiles_y = -(-height // tile_size)
-    num_tiles = tiles_x * tiles_y
-    n_pow2 = _next_pow2(N)
-    if num_tiles * n_pow2 >= 2**31:
-        raise ValueError("int32 key overflow; shrink tiles or N")
+    tiles_x, tiles_y, num_tiles, n_pow2 = _grid(N, height, width, tile_size)
 
     # global front-to-back rank (invalid last); the depth sort is STABLE
     depth_key = torch.where(valid, depth, torch.full_like(depth, float("inf")))

@@ -10,8 +10,11 @@ Replaces ``generativedensification_tpu/splat/pallas_kernels.py``'s
 (``csrc/surfel_fwd.cu``, ``csrc/surfel_bwd.cu``) have their wrappers in
 ``surfel_kernels.py`` and the stage probes of the two forwards
 (``csrc/composite_fwd_probe.cu``, ``csrc/surfel_fwd_probe.cu``) in
-``probe_kernels.py``; all are registered here, so that ``build()`` compiles
-every source and ``launch_counts`` counts every launch.  Each source is
+``probe_kernels.py``, and the renders' pre-pass (``csrc/prepass.cu``: the
+projection and the tile binning, which replace no TPU kernel) in
+``projection.py`` and ``binning.py``; all are registered here, so that
+``build()`` compiles every source and ``launch_counts`` counts every
+launch.  Each source is
 built with ``nvcc`` for ``sm_90a`` into a plain-C shared library at first
 use (the sources asked for compiled at once, one ``nvcc`` each) and loaded
 with ``ctypes``; nothing is compiled or imported for them when this module
@@ -79,7 +82,8 @@ NVCC_FLAGS = (
 # launches, and nowhere else
 launch_counts = {"composite_fwd": 0, "composite_bwd": 0, "surfel_fwd": 0,
                  "surfel_bwd": 0, "reduce_slots": 0, "transpose_rows": 0,
-                 "composite_fwd_probe": 0, "surfel_fwd_probe": 0}
+                 "composite_fwd_probe": 0, "surfel_fwd_probe": 0, "project": 0,
+                 "depth_rank": 0, "tile_keys": 0, "tile_ranges": 0}
 
 
 def reset_launch_counts() -> None:
@@ -89,13 +93,15 @@ def reset_launch_counts() -> None:
 
 class _Library:
     """One kernel source, its built shared library and what its build
-    reported."""
+    reported.  ``argtypes`` are those of the entry point ``gd_<name>``, or a
+    dict {kernel: argument types} of the entry points ``gd_<kernel>`` of a
+    source that holds several kernels."""
 
-    def __init__(self, name: str, argtypes: list):
+    def __init__(self, name: str, argtypes):
         self.name = name
         self.src = _CSRC / f"{name}.cu"
-        self.symbol = f"gd_{name}"
-        self.argtypes = argtypes
+        self.entries = argtypes if isinstance(argtypes, dict) else {name: argtypes}
+        self.argtypes = self.entries.get(name)
         self.lib = None
         self.path = None
         self.build_seconds = 0.0
@@ -114,11 +120,18 @@ _libraries = {
                                     [_I] + [_P] * 5 + [_I] * 3 + [_P]),
     "surfel_fwd_probe": _Library("surfel_fwd_probe",
                                  [_I] + [_P] * 6 + [_I] * 3 + [_P]),
+    "prepass": _Library("prepass", {
+        "project": [_P, _P, _I] + [_P] * 5 + [_I] * 2 + [_P] + [_I] * 2 + [_P, _I]
+                   + [_P] * 2 + [_I] * 4 + [_P] * 8,
+        "depth_rank": [_P] * 3 + [_I] + [_P] * 2,
+        "tile_keys": [_P] * 9 + [_I] * 7 + [_P],
+        "tile_ranges": [_P] * 12 + [_I] * 5 + [_P],
+    }),
 }
-# the kernels that serving and training run; the probes build only when a
+# the sources that serving and training run; the probes build only when a
 # breakdown asks for them
 MAIN_KERNELS = ("composite_fwd", "composite_bwd", "surfel_fwd", "surfel_bwd",
-                "reduce_slots", "transpose_rows")
+                "reduce_slots", "transpose_rows", "prepass")
 
 
 def _nvcc() -> str:
@@ -169,9 +182,10 @@ def build(names=None) -> dict[str, _Library]:
                 proc.wait()
     for lib in todo:
         cdll = ctypes.CDLL(str(lib.path))
-        fn = getattr(cdll, lib.symbol)
-        fn.argtypes = lib.argtypes
-        fn.restype = ctypes.c_int
+        for entry, argtypes in lib.entries.items():
+            fn = getattr(cdll, f"gd_{entry}")
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         lib.build_seconds = time.perf_counter() - t0
         lib.lib = cdll
     return _libraries

@@ -5,6 +5,14 @@ Port of ``generativedensification_tpu/splat/projection.py``: view transform
 screen radius.  Matrices are row-vector form (``p_view = [p,1] @ w2c.T``),
 pixel centers via ndc2Pix ``((ndc + 1) * S - 1) / 2``, activations applied
 by the caller.
+
+``project_gaussians`` is the plain op chain.  ``project`` is the renderer's
+entry: it also normalises the rotations and folds validity into the
+opacity.  Tensors on the card go through one launch of the ``project``
+kernel (``csrc/prepass.cu``: it replaces no TPU kernel; XLA fuses the chain
+there, eager PyTorch launched ~100 ops a view); CPU tensors take the plain
+chain.  Where autograd records, the kernel's forward is wrapped in
+``ProjectFunction``, whose backward recomputes the plain chain.
 """
 
 from __future__ import annotations
@@ -14,6 +22,9 @@ import dataclasses
 import torch
 
 from ..core.sh import eval_sh_color
+from ..core.transforms import normalize_quat
+from ..utils import tracing
+from .kernels import MAIN_KERNELS, build, launch_counts
 
 # 3DGS constants
 NEAR_CULL = 0.2          # view-space z culling threshold
@@ -153,3 +164,135 @@ def project_gaussians(means3d, shs, opacity, camera, sh_degree: int,
         radius=torch.where(valid, radius, torch.zeros_like(radius)),
         valid=valid,
     )
+
+
+def _project_plain(camera, sh_degree, means3d, shs, opacity, scales, rotations,
+                   screen_offset):
+    """``project``'s plain chain: (ProjectedGaussians, opacity_eff)."""
+    proj = project_gaussians(means3d, shs, opacity, camera, sh_degree, scales,
+                             normalize_quat(rotations), screen_offset)
+    return proj, torch.where(proj.valid, proj.opacity, torch.zeros_like(proj.opacity))
+
+
+def _camera_tensors(camera):
+    return (camera.world_view_transform, camera.full_proj_transform,
+            camera.camera_center, camera.tan_half_fovx, camera.tan_half_fovy)
+
+
+def _project_kernel(camera, sh_degree, means3d, shs, opacity, scales, rotations,
+                    screen_offset) -> tuple:
+    """One launch of the projection kernel: (xy, depth, conic, color,
+    opacity_eff, radius, valid) for one view."""
+    f32 = torch.float32
+    dev = means3d.device
+    N = means3d.shape[0]
+    if not 0 <= sh_degree <= 3:
+        raise ValueError(f"the projection kernel takes SH degree 0-3, got {sh_degree}")
+    f = lambda t: t.detach().to(f32).contiguous()
+    means3d, shs, opacity, scales, rotations = (
+        f(means3d), f(shs), f(opacity), f(scales), f(rotations))
+    offset = None if screen_offset is None else f(screen_offset)
+    for name, t, shape in (("means3d", means3d, (N, 3)), ("opacity", opacity, (N,)),
+                           ("scales", scales, (N, 3)), ("rotations", rotations, (N, 4)),
+                           ("screen_offset", offset, (N, 2))):
+        if t is not None and tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    if shs.dim() != 3 or shs.shape[0] != N or shs.shape[2] != 3 \
+            or shs.shape[1] < (sh_degree + 1) ** 2:
+        raise ValueError(f"shs must be ({N}, >= {(sh_degree + 1) ** 2}, 3), got "
+                         f"{tuple(shs.shape)}")
+    wvt, fpt, center, tanx, tany = _camera_tensors(camera)
+    if any(t.device != dev or t.dtype != f32 for t in (wvt, fpt, center, tanx, tany)):
+        raise ValueError("the camera's tensors must be float32 on the Gaussians' device")
+    if wvt.shape != (4, 4) or fpt.shape != (4, 4) or center.shape != (3,) \
+            or tanx.dim() or tany.dim():
+        raise ValueError("the projection kernel takes one camera (no batch dims)")
+    e = lambda shape, dtype=f32: torch.empty(shape, dtype=dtype, device=dev)
+    outs = (e((N, 2)), e(N), e((N, 3)), e((N, 3)), e(N), e(N), e(N, torch.bool))
+    if N:
+        lib = build(MAIN_KERNELS)["prepass"].lib
+        ptr = lambda t: None if t is None else t.data_ptr()
+        with torch.cuda.device(dev):
+            err = lib.gd_project(
+                means3d.data_ptr(), shs.data_ptr(), shs.stride(0), opacity.data_ptr(),
+                scales.data_ptr(), rotations.data_ptr(), ptr(offset), wvt.data_ptr(),
+                *wvt.stride(), fpt.data_ptr(), *fpt.stride(), center.data_ptr(),
+                center.stride(0), tanx.data_ptr(), tany.data_ptr(), N, camera.width,
+                camera.height, sh_degree, *(o.data_ptr() for o in outs),
+                torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"project launch failed: CUDA error {err}")
+        launch_counts["project"] += 1
+    return outs
+
+
+def _project_outputs(camera, sh_degree, *inputs) -> tuple:
+    """``_project_kernel``'s outputs: from the kernel for card tensors, from
+    the plain chain for CPU tensors."""
+    if inputs[0].device.type != "cpu":
+        return _project_kernel(camera, sh_degree, *inputs)
+    proj, opacity_eff = _project_plain(camera, sh_degree, *inputs)
+    return (proj.xy, proj.depth, proj.conic, proj.color, opacity_eff, proj.radius,
+            proj.valid)
+
+
+class ProjectFunction(torch.autograd.Function):
+    """The projection with the kernel's forward (the plain chain for CPU
+    tensors) and the plain chain's gradients: the backward recomputes
+    ``_project_plain`` from the saved inputs under ``enable_grad`` and
+    returns ``autograd.grad`` of its differentiable outputs (xy, depth,
+    conic, color, opacity_eff), as ``models/init.py::remat_call`` does.
+    ``apply(camera, sh_degree, means3d, shs, opacity, scales, rotations,
+    screen_offset)`` -> ``_project_kernel``'s tuple.  The camera takes no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, camera, sh_degree, *inputs):
+        ctx.set_materialize_grads(False)
+        ctx.camera, ctx.sh_degree = camera, sh_degree
+        ctx.save_for_backward(*inputs)
+        outs = _project_outputs(camera, sh_degree, *inputs)
+        ctx.mark_non_differentiable(*outs[5:])
+        return outs
+
+    @staticmethod
+    def backward(ctx, *grads):
+        need = ctx.needs_input_grad[2:]
+        inputs = [None if t is None else t.detach().requires_grad_(n)
+                  for t, n in zip(ctx.saved_tensors, need)]
+        wrt = [t for t, n in zip(inputs, need) if n]
+        with torch.enable_grad():
+            proj, opacity_eff = _project_plain(ctx.camera, ctx.sh_degree, *inputs)
+        pairs = [(o, g) for o, g in zip(
+            (proj.xy, proj.depth, proj.conic, proj.color, opacity_eff), grads)
+            if g is not None]
+        got = iter(torch.autograd.grad([o for o, _ in pairs], wrt,
+                                       [g for _, g in pairs], allow_unused=True)
+                   if pairs else [None] * len(wrt))
+        tracing.count("project_recompute", 1)
+        return (None, None, *(next(got) if n else None for n in need))
+
+
+def project(means3d, shs, opacity, camera, sh_degree: int, scales, rotations,
+            screen_offset=None) -> tuple:
+    """The renderer's projection of one view: ``rotations`` normalised here,
+    then ``project_gaussians``; returns (ProjectedGaussians, opacity_eff), the
+    opacity zeroed where the Gaussian is culled.  Card tensors launch the
+    ``project`` kernel (through ``ProjectFunction`` where autograd records;
+    the camera then may not require a gradient); CPU tensors take the plain
+    chain."""
+    inputs = (means3d, shs, opacity, scales, rotations, screen_offset)
+    if means3d.device.type == "cpu":
+        return _project_plain(camera, sh_degree, *inputs)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in inputs):
+        if any(t.requires_grad for t in _camera_tensors(camera)):
+            raise ValueError("the projection kernel gives the camera no gradient")
+        outs = ProjectFunction.apply(camera, sh_degree, *inputs)
+    else:
+        outs = _project_kernel(camera, sh_degree, *inputs)
+    xy, depth, conic, color, opacity_eff, radius, valid = outs
+    proj = ProjectedGaussians(xy=xy, depth=depth, conic=conic, color=color,
+                              opacity=opacity.to(torch.float32), radius=radius,
+                              valid=valid)
+    return proj, opacity_eff

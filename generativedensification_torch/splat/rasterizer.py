@@ -2,8 +2,10 @@
 
 Port of ``generativedensification_tpu/splat/rasterizer.py``: image
 (H, W, 3), alpha map, expected depth and per-Gaussian radii, differentiable
-through autograd.  Tensors on the card composite through the CUDA kernels,
-CPU tensors through their plain versions; there is no backend switch.
+through autograd.  Tensors on the card are projected, binned and composited
+by the CUDA kernels (``projection.project``, ``binning.bin_and_cap``, the
+compositors), CPU tensors by their plain versions; there is no backend
+switch.
 ``screen_offset`` / ``screen_abs`` are the AbsGS gradient hooks of the
 reference's zero ``means2D`` tensor: ``screen_offset`` is added to the
 projected means (its gradient is the signed screen gradient) and
@@ -19,11 +21,10 @@ import dataclasses
 
 import torch
 
-from ..core.transforms import normalize_quat
 from ..utils import tracing
-from .binning import bin_gaussians
+from .binning import bin_and_cap
 from .composite import composite_tiles, composite_tiles_sel
-from .projection import project_gaussians
+from .projection import project
 
 
 @dataclasses.dataclass
@@ -62,21 +63,11 @@ def rasterize(means3d, shs, opacities, scales, rotations, camera, bg,
     max_per_tile = min(max_per_tile, N * max_tiles)
 
     with tracing.span("gd.project"):
-        proj = project_gaussians(means3d, shs, opacities, camera, sh_degree,
-                                 scales, normalize_quat(rotations), screen_offset)
-    opacity_eff = torch.where(proj.valid, proj.opacity,
-                              torch.zeros_like(proj.opacity))
+        proj, opacity_eff = project(means3d, shs, opacities, camera, sh_degree,
+                                    scales, rotations, screen_offset)
     with tracing.span("gd.bin"):
-        bins = bin_gaussians(proj, H, W, tile_size=tile_size, max_tiles=max_tiles,
-                             max_pairs=max_pairs, enum_tiles=enum_tiles)
-        # the per-tile slot cap is a shared semantic: clamp counts once so
-        # every path composites the same front-most max_per_tile slots per
-        # tile, and count the truncation in ``overflow``
-        tile_counts = torch.clamp(bins.tile_counts, max=max_per_tile)
-        cap_overflow = (bins.tile_counts - tile_counts).sum().to(torch.int32)
-        overflow = bins.overflow + cap_overflow
-        tracing.count("pairs", tile_counts)
-        tracing.count("pairs_dropped", overflow)
+        bins, tile_counts, overflow = bin_and_cap(
+            proj, H, W, tile_size, max_tiles, max_per_tile, max_pairs, enum_tiles)
     seg = (bins.sorted_ids, bins.sorted_o, bins.depth_order, bins.tile_starts,
            tile_counts, N * max_tiles)
     dims = (bins.tiles_x, bins.tiles_y, tile_size)

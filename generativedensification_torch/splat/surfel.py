@@ -34,7 +34,7 @@ import torch
 from ..core.sh import eval_sh_color
 from ..core.transforms import normalize_quat
 from ..utils import tracing
-from .binning import bin_gaussians
+from .binning import bin_and_cap
 from .composite import _tile, _untile, mse_image_cotangent, slots_to_gaussians
 from .projection import ProjectedGaussians
 from .surfel_kernels import (
@@ -373,14 +373,9 @@ def surfel_inputs(means3d, shs, opacities, scales2d, rotations, camera,
                               opacity=opacity_f, radius=radius, valid=valid)
     opacity_eff = torch.where(valid, opacity_f, torch.zeros_like(opacity_f))
     with tracing.span("gd.bin"):
-        bins = bin_gaussians(proj, camera.height, camera.width, tile_size=tile_size,
-                             max_tiles=max_tiles, enum_tiles=enum_tiles)
-        # the per-tile cap clamps the counts once (rasterizer.py rationale)
-        tile_counts = torch.clamp(bins.tile_counts, max=max_per_tile)
-        cap_overflow = (bins.tile_counts - tile_counts).sum().to(torch.int32)
-        overflow = bins.overflow + cap_overflow
-        tracing.count("pairs", tile_counts)
-        tracing.count("pairs_dropped", overflow)
+        bins, tile_counts, overflow = bin_and_cap(
+            proj, camera.height, camera.width, tile_size, max_tiles, max_per_tile,
+            enum_tiles=enum_tiles)
     planes = torch.stack([torch.as_tensor(camera.znear), torch.as_tensor(camera.zfar)]
                          ).to(device=xy.device, dtype=torch.float32)
     return SurfelInputs(

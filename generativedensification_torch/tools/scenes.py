@@ -9,6 +9,9 @@ kernels' own inputs (projected or set up, binned and packed by the port).
   serving network from seed 0 on the probe batch, in view 0
   (``model_view`` and ``model_gaussians`` / ``model_surfels``);
 - a small surfel scene (256², 20,000 surfels), ``surfel_scene``;
+- the pre-pass scene (``prepass_scene``: the rasterizer's inputs, up to the
+  serving networks' 262,144 coarse and 331,744 fine Gaussians at 512², a
+  tenth of them off-screen or behind the camera);
 - the adversarial scene of the compositors' footprint skip (256²,
   ``adversarial_scene``), and of the surfel kernels' screen-circle skip
   (``surfel_adversarial_scene``).
@@ -112,6 +115,36 @@ def bench_scene(dev, tile_size=32, max_tiles=4, n=131072, hw=512,
     means, shs, opa, scales, quats, cam = _bench_arrays(dev, n, hw, 3)
     return compositor_inputs(means, shs, opa, scales, quats, cam, tile_size,
                              max_tiles, max_per_tile, enum_tiles)
+
+
+def prepass_scene(dev, n, height=512, width=None, seed=0, sh_degree=1,
+                  smax=0.03):
+    """The pre-pass scene: ``rasterize``'s inputs (means, SH of
+    ``sh_degree``, activated opacity and scales, raw quaternions, camera) for
+    ``n`` Gaussians from ``seed`` at ``height`` x ``width`` (square by
+    default).  Nine tenths lie in scene A's cube with scales in [0.002,
+    ``smax``] (at 512² the largest cover 3 x 3 tiles of 32 px: the serving
+    budget of 4 drops some); the rest lie in a cube 18 times as wide, off
+    the screen or behind the camera."""
+    rng = np.random.default_rng(seed)
+    f = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    far = rng.uniform(size=n) < 0.1
+    means = rng.uniform(-0.45, 0.45, size=(n, 3))
+    means[far] *= 18.0
+    shs = f(rng.normal(size=(n, (sh_degree + 1) ** 2, 3)) * 0.3 + 0.2)
+    opa = torch.sigmoid(f(rng.normal(size=(n,)) - 0.5))
+    scales = torch.exp(f(rng.uniform(np.log(0.002), np.log(smax), size=(n, 3))))
+    quats = f(rng.normal(size=(n, 4)))
+    # a camera 1.9 from the cube's centre, turned 0.7 rad about a seeded axis
+    axis = rng.normal(size=3)
+    k = np.cross(np.eye(3), axis / np.linalg.norm(axis))
+    rot = np.eye(3) + np.sin(0.7) * k + (1.0 - np.cos(0.7)) * k @ k
+    c2w = np.eye(4)
+    c2w[:3, :3] = rot
+    c2w[:3, 3] = -rot @ np.array([0.0, 0.0, 1.9])
+    cam = Camera.from_c2w(f(c2w), 0.8, 0.8 * height / (width or height),
+                          width or height, height, znear=0.1, zfar=10.0)
+    return f(means), shs, opa, scales, quats, cam
 
 
 def surfel_bench_scene(dev, scales="default", tile_size=32, max_tiles=4,

@@ -17,6 +17,10 @@ The forward and the renderers open named spans at their layer boundaries
     pairs_dropped  the pairs the budgets dropped: the binning overflow plus
                    the per-tile cap's, the tensor a render returns as
                    ``overflow``
+    prepass_kernel_views  views whose pre-pass (projection and binning, or
+                   the 2DGS binning) ran as the ``csrc/prepass.cu`` kernels
+    project_recompute  backwards of ``ProjectFunction`` that recomputed the
+                   plain projection
 
 Tracing is off unless a ``torch.profiler`` is recording (the benchmark's
 traced window, or the ``tpu.profile_dir`` trace of the train CLI, which then
@@ -26,11 +30,14 @@ profiler range, no CUDA event, no allocation.  On, a span opens a
 ``record_function`` range of its name, stamps its host start and end with
 ``time.time_ns()`` (the clock of the profiler's event timestamps), and, when
 CUDA is in use, records a CUDA event on the current stream at each end.
-A counter keeps a reference to the tensor it is given: no host sync.
+A counter keeps a reference to the tensor it is given: no host sync; a
+Python number is added as it is.
 
 Spans and counters are kept per request (a ``gd.forward`` span with all it
 encloses), the last ``KEEP`` requests in memory; spans outside a request
-open their range and keep nothing.  Nothing is written or synchronised
+open their range and keep nothing.  Counts of Python numbers outside a
+request (a backward, which autograd may run on a thread of its own) add to
+``summary()["outside"]``.  Nothing is written or synchronised
 until ``summary()``::
 
     from generativedensification_torch.utils import tracing
@@ -63,6 +70,8 @@ KEEP = 64
 
 _on = False
 _requests: collections.deque = collections.deque(maxlen=KEEP)
+_outside: collections.Counter = collections.Counter()
+_outside_lock = threading.Lock()
 _ids = itertools.count()
 _local = threading.local()
 
@@ -171,19 +180,28 @@ def traced(name: str):
     return wrap
 
 
-def count(name: str, value: torch.Tensor) -> None:
-    """Add the sum of ``value`` to the counter ``name`` of the current
-    request (kept as a reference, summed in ``summary()``)."""
+def count(name: str, value) -> None:
+    """Add the sum of ``value`` (a tensor, kept as a reference and summed in
+    ``summary()``, or a Python number) to the counter ``name`` of the
+    current request; a number counted outside any request adds to the
+    ``outside`` counters."""
     if not (_on or _profiler_enabled()):
         return
+    number = not isinstance(value, torch.Tensor)
     stack = _stack()
     if stack and stack[-1].request is not None:
-        stack[-1].request.counters.setdefault(name, []).append(value.detach())
+        stack[-1].request.counters.setdefault(name, []).append(
+            value if number else value.detach())
+    elif number:
+        with _outside_lock:
+            _outside[name] += value
 
 
 def reset() -> None:
-    """Forget every kept request."""
+    """Forget every kept request and the outside counters."""
     _requests.clear()
+    with _outside_lock:
+        _outside.clear()
 
 
 def records() -> list:
@@ -197,8 +215,9 @@ def records() -> list:
 def summary() -> dict:
     """Totals over the kept, finished requests: ``{"requests": n, "spans":
     {name: {count, host_ms, device_ms, self_host_ms, self_device_ms}},
-    "counters": {name: total}}`` (device ms ``None`` without CUDA
-    events).  Synchronises once."""
+    "counters": {name: total}, "outside": {name: total}}`` (device ms
+    ``None`` without CUDA events; ``outside`` the numbers counted outside
+    any request).  Synchronises once."""
     reqs = [r for r in list(_requests) if r.done]
     if any(s.e0 is not None for r in reqs for s in r.spans):
         torch.cuda.synchronize()
@@ -225,6 +244,12 @@ def summary() -> dict:
                 t["self_device_ms"] = (t["self_device_ms"] or 0.0) + dev - child[sid][1]
         for name, vals in req.counters.items():
             tallies[name] += vals
-    counters = {name: torch.stack([v.sum() for v in vals]).sum().item()
-                for name, vals in tallies.items()}
-    return {"requests": len(reqs), "spans": spans, "counters": counters}
+    counters = {}
+    for name, vals in tallies.items():
+        sums = [v.sum() for v in vals if isinstance(v, torch.Tensor)]
+        counters[name] = (sum(v for v in vals if not isinstance(v, torch.Tensor))
+                          + (torch.stack(sums).sum().item() if sums else 0))
+    with _outside_lock:
+        outside = dict(_outside)
+    return {"requests": len(reqs), "spans": spans, "counters": counters,
+            "outside": outside}
