@@ -15,6 +15,9 @@ from __future__ import annotations
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_OPS_PER_S = 67e12         # f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12       # bf16 on the tensor cores, dense
+# the peak each product's operand type runs at
+PEAK_BY_DTYPE = {"torch.bfloat16": BF16_OPS_PER_S, "torch.float32": F32_OPS_PER_S}
 
 # per contributing (slot, pixel) pair: the evaluation (2 diffs, the power
 # form's 7, clamp, exp, opacity product, alpha clamp, the 1/255 compare:
@@ -89,3 +92,39 @@ def model_flops(run_forward) -> int:
     inner = [k for k in counts if "." in k]
     outer = [k for k in inner if not any(k.startswith(o + ".") for o in inner)]
     return int(sum(sum(counts[k].values()) for k in outer))
+
+
+def flops_by_dtype(run) -> dict:
+    """{operand dtype: FLOPs} of the matrix products, convolutions and
+    attention that ``run()`` dispatches, forward and backward, as
+    ``torch.utils.flop_counter`` counts each from its shapes, keyed by the
+    dtype of its first tensor operand.  f64 products (the reference
+    compositors' chains: the renders) are left out."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+    from torch.utils.flop_counter import flop_registry
+
+    counts: dict = {}
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            count = flop_registry.get(func._overloadpacket)
+            if count is not None:
+                dt = next(t.dtype for t in tree_leaves(args) if torch.is_tensor(t))
+                if dt != torch.float64:
+                    counts[str(dt)] = counts.get(str(dt), 0) + int(
+                        count(*args, **kwargs, out_val=out))
+            return out
+
+    with Count():
+        run()
+    return counts
+
+
+def seconds_at_peak(flops: dict) -> float:
+    """The least time of the products counted by ``flops_by_dtype``, each
+    at the peak of its operand type."""
+    return sum(f / PEAK_BY_DTYPE[dt] for dt, f in flops.items())

@@ -269,9 +269,11 @@ def _depth_normal_gap(ref, batch: dict, maps: dict) -> float:
 
 class Prefetch:
     """A data loader's prefetch thread: makes the requests of one stream
-    ahead of the loop (two in flight)."""
+    ahead of the loop (two in flight), each by ``make(traffic, seed,
+    stream, index)``."""
 
-    def __init__(self, traffic, seed, stream):
+    def __init__(self, traffic, seed, stream, make=scenes.scene):
+        self.make = make
         self.q = queue.Queue(maxsize=2)
         self.stop = threading.Event()
         self.t = threading.Thread(target=self._run, args=(traffic, seed, stream),
@@ -281,7 +283,7 @@ class Prefetch:
     def _run(self, traffic, seed, stream):
         i = 0
         while not self.stop.is_set():
-            item = (i, scenes.scene(traffic, seed, stream, i))
+            item = (i, self.make(traffic, seed, stream, i))
             while not self.stop.is_set():
                 try:
                     self.q.put(item, timeout=0.1)

@@ -71,6 +71,7 @@ class Replay:
     def __init__(self, chosen: list):
         self.chosen = list(chosen)
         self.gaps = []
+        self.outside = []          # the share of each set below the k-th score
 
     def take(self, s: torch.Tensor, k: int) -> torch.Tensor:
         if not self.chosen:
@@ -80,11 +81,13 @@ class Replay:
         if tuple(top.shape) != (s.shape[0], k):
             raise RuntimeError(f"the program's top-k set is {tuple(top.shape)}, "
                                f"the reference's ({s.shape[0]}, {k})")
-        s64 = s.to(torch.float64)
+        s64 = s.detach().to(torch.float64)
         kth = torch.sort(s64, dim=1, descending=True).values[:, k - 1]
-        worst = torch.gather(s64, 1, top).amin(1)
+        chosen = torch.gather(s64, 1, top)
+        worst = chosen.amin(1)
         gap = (kth - worst).clamp(min=0.0) / kth.abs().clamp(min=1e-30)
         self.gaps.append(float(gap.max()))
+        self.outside.append(float((chosen < kth[:, None]).double().mean()))
         return top
 
 

@@ -4,6 +4,13 @@ Port of ``generativedensification_tpu/points/structure.py``: ``(B, N, ...)``
 tensors plus a ``(B, N)`` mask; :func:`serialize_pointset` computes the
 space-filling-curve permutations of every requested order (invalid points
 key past every valid one, so they sort to the tail of each sample).
+
+The benchmark's frozen copy of the port's ``points/structure.py``, changed
+from it so: while ``GRID`` holds a ``GridReplay``, ``serialize_pointset``
+takes each point set's grid cells from it (the program's, in the order the
+program made them), so that the orders and neighbours follow the program's,
+and records the share of valid points whose own cell differs
+(``GridReplay.moved``).
 """
 
 from __future__ import annotations
@@ -62,6 +69,29 @@ def grid_quantize(coord: torch.Tensor, mask: torch.Tensor, grid_size: float) -> 
     return torch.clamp(gc, min=0)
 
 
+class GridReplay:
+    """The program's grid cells of each serialized point set, in order."""
+
+    def __init__(self, cells: list):
+        self.cells = list(cells)
+        self.moved = []
+
+    def take(self, gc: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        if not self.cells:
+            raise RuntimeError("the program serialized fewer point sets than "
+                               "the reference asks for")
+        theirs = self.cells.pop(0).to(gc.device)
+        if theirs.shape != gc.shape:
+            raise RuntimeError(f"the program's grid cells are {tuple(theirs.shape)}, "
+                               f"the reference's {tuple(gc.shape)}")
+        moved = ((theirs != gc).any(-1) & mask).sum()
+        self.moved.append(float(moved) / max(int(mask.sum()), 1))
+        return theirs
+
+
+GRID: GridReplay | None = None
+
+
 def serialize_pointset(ps: PointSet, orders=("z", "z-trans", "hilbert", "hilbert-trans"),
                        depth: int | None = None,
                        shuffle: torch.Tensor | None = None) -> PointSet:
@@ -73,6 +103,8 @@ def serialize_pointset(ps: PointSet, orders=("z", "z-trans", "hilbert", "hilbert
     if depth is None:
         depth = depth_for_grid(ps.grid_size)
     gc = grid_quantize(ps.coord, ps.mask, ps.grid_size)
+    if GRID is not None:
+        gc = GRID.take(gc, ps.mask)
     B, N = ps.mask.shape
     iota = torch.arange(N, device=gc.device).expand(B, N)
     perms, invs = [], []

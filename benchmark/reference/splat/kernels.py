@@ -7,10 +7,11 @@ power form and alpha in f32 in the kernels' order of operations, the 1/255
 cut, alpha clamped at 0.99, and a pixel that stops before the slot whose
 transmittance would fall below 1e-4.  The work is laid out differently from
 every implementation of the port: the tiles are grouped by their slot count
-and each group is evaluated as one (tiles, slots, pixels) block, with the
-transmittance chain as a cumulative product and the prefix of the backward
-as a cumulative sum, both in f64, and no footprint skip unless ``skip=True``
-asks for one (which changes no output).
+and each group is evaluated as one (tiles, pixels, slots) block, the slots
+innermost, with the transmittance chain as a cumulative product and the
+prefix of the backward as a cumulative sum along them, both in f64, and no
+footprint skip unless ``skip=True`` asks for one (which changes no
+output).
 
 ``pair_counts`` gives, for one launch's inputs, the (slot, pixel) pairs that
 pass the alpha cut before the pixel's stop: the work the inputs need,
@@ -58,46 +59,47 @@ def gather_group(table, sorted_ids, tile_starts, tile_counts, tiles, S):
     return slot, in_range, rows
 
 
-def chain(alpha, hit):
-    """The transmittance chain over the slot axis (dim 1) in f64: the
+def chain(alpha, hit, dim: int = 1):
+    """The transmittance chain over the slot axis ``dim`` in f64: the
     transmittance before each slot, 1 - alpha, and the pairs taken
     (hit, and before the pixel's stop)."""
     a = alpha.to(F64)
     one_m = 1.0 - a
     f = torch.where(hit, one_m, torch.ones_like(one_m))
-    t_in = torch.cat([torch.ones_like(f[:, :1]), torch.cumprod(f, dim=1)[:, :-1]],
-                     dim=1)
+    n = f.shape[dim]
+    t_in = torch.cat([torch.ones_like(f.narrow(dim, 0, 1)),
+                      torch.cumprod(f, dim=dim).narrow(dim, 0, n - 1)], dim=dim)
     U = t_in * one_m
     stop = hit & (U < T_EPS)
-    stopped_before = (torch.cumsum(stop.to(torch.int32), dim=1) - stop.to(torch.int32)) > 0
+    stopped_before = (torch.cumsum(stop.to(torch.int32), dim=dim) - stop.to(torch.int32)) > 0
     take = hit & ~stop & ~stopped_before
     return a, t_in, one_m, take
 
 
 def _geometry(table, sorted_ids, tile_starts, tile_counts, tiles, S, tiles_x,
               ts, skip: bool):
-    """Alpha of every (slot, pixel) of a group of tiles, as the kernels
-    compute it in f32."""
+    """Alpha of every (pixel, slot) of a group of tiles, as the kernels
+    compute it in f32: (G, npix, S) blocks; the per-slot values (G, 1, S)."""
     dev = table.device
     f32 = torch.float32
     npix = ts * ts
     slot, in_range, rows = gather_group(table, sorted_ids, tile_starts,
                                         tile_counts, tiles, S)
     p = torch.arange(npix, device=dev)
-    px = (p % ts).to(f32)
-    py = torch.div(p, ts, rounding_mode="floor").to(f32)
+    px = (p % ts).to(f32)[:, None]
+    py = torch.div(p, ts, rounding_mode="floor").to(f32)[:, None]
     ox = ((tiles % tiles_x) * ts).to(f32)[:, None]
     oy = (torch.div(tiles, tiles_x, rounding_mode="floor") * ts).to(f32)[:, None]
-    gx = (rows[..., 0] - ox)[..., None]
-    gy = (rows[..., 1] - oy)[..., None]
-    a, b, c = (rows[..., i][..., None] for i in (2, 3, 4))
+    gx = (rows[..., 0] - ox)[:, None]
+    gy = (rows[..., 1] - oy)[:, None]
+    a, b, c = (rows[..., i][:, None] for i in (2, 3, 4))
     opa = torch.where(in_range & (rows[..., 10] > 0), rows[..., 5],
-                      torch.zeros_like(rows[..., 5]))[..., None]
+                      torch.zeros_like(rows[..., 5]))[:, None]
     dx = px - gx
     dy = py - gy
     power = torch.clamp(-0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy, max=0.0)
     alpha = torch.clamp(opa * torch.exp(power), max=ALPHA_MAX)
-    hit = (alpha >= ALPHA_MIN) & in_range[..., None]
+    hit = (alpha >= ALPHA_MIN) & in_range[:, None]
     if skip:
         hit = hit & _reach(gx, gy, a, b, c, opa, px, py)
     return dict(slot=slot, in_range=in_range, rows=rows, dx=dx, dy=dy,
@@ -127,11 +129,11 @@ def composite_fwd(table, sorted_ids, tile_starts, tile_counts, tiles_x: int,
     for tiles, S in tile_groups(tile_counts, npix):
         g = _geometry(table, sorted_ids, tile_starts, tile_counts, tiles, S,
                       tiles_x, tile_size, skip)
-        a, t_in, one_m, take = chain(g["alpha"], g["hit"])
+        a, t_in, one_m, take = chain(g["alpha"], g["hit"], -1)
         w = torch.where(take, a * t_in, torch.zeros_like(a))
         cols = g["rows"][..., 6:10].to(F64)                     # (G, S, 4)
-        acc = torch.einsum("gsp,gsc->gcp", w, cols)
-        t_fin = torch.prod(torch.where(take, one_m, torch.ones_like(one_m)), dim=1)
+        acc = torch.einsum("gps,gsc->gcp", w, cols)
+        t_fin = torch.prod(torch.where(take, one_m, torch.ones_like(one_m)), dim=-1)
         out[tiles, 0:4] = acc.to(torch.float32)
         out[tiles, 4] = (1.0 - t_fin).to(torch.float32)
     return out
@@ -148,15 +150,15 @@ def composite_bwd(table, sorted_ids, tile_starts, tile_counts, gc4, g2,
     for tiles, S in tile_groups(tile_counts, npix, BLOCK_ELEMENTS // 2):
         g = _geometry(table, sorted_ids, tile_starts, tile_counts, tiles, S,
                       tiles_x, tile_size, False)
-        a, t_in, one_m, take = chain(g["alpha"], g["hit"])
+        a, t_in, one_m, take = chain(g["alpha"], g["hit"], -1)
         zero = torch.zeros((), dtype=F64, device=a.device)
         w = torch.where(take, a * t_in, zero)
-        col = g["rows"].to(F64)[..., None]                      # (G, S, 12, 1)
-        gc = gc4[tiles].to(F64)[:, None]                        # (G, 1, 4, P)
-        gr, gg, gb, gd = gc[:, :, 0], gc[:, :, 1], gc[:, :, 2], gc[:, :, 3]
-        contrib = gr * col[:, :, 6] + gg * col[:, :, 7] + gb * col[:, :, 8] + gd * col[:, :, 9]
-        prefix = torch.cumsum(torch.where(take, contrib * w, zero), dim=1)
-        suffix = g2[tiles].to(F64)[:, None] - prefix
+        col = g["rows"].to(F64)[:, None]                        # (G, 1, S, 12)
+        gc = gc4[tiles].to(F64)[..., None]                      # (G, 4, P, 1)
+        gr, gg, gb, gd = gc[:, 0], gc[:, 1], gc[:, 2], gc[:, 3]
+        contrib = gr * col[..., 6] + gg * col[..., 7] + gb * col[..., 8] + gd * col[..., 9]
+        prefix = torch.cumsum(torch.where(take, contrib * w, zero), dim=-1)
+        suffix = g2[tiles].to(F64)[..., None] - prefix
         g_alpha = contrib * t_in - suffix / torch.clamp(one_m, min=1.0 - ALPHA_MAX)
         g_power = torch.where(take & (a < ALPHA_MAX), g_alpha * a, zero)
         dx, dy = g["dx"].to(F64), g["dy"].to(F64)
@@ -171,9 +173,9 @@ def composite_bwd(table, sorted_ids, tile_starts, tile_counts, gc4, g2,
                     g_power, w * gr, w * gg, w * gb, w * gd]
             if mode == "full":
                 cols += [gx.abs(), gy.abs()]
-        vals = torch.stack([v.sum(-1) for v in cols], dim=-1)   # (G, S, W)
+        vals = torch.stack([v.sum(1) for v in cols], dim=-1)    # (G, S, W)
         if mode != "selonly":
-            vals[..., 5] = vals[..., 5] / torch.clamp(col[:, :, 5, 0], min=1e-12)
+            vals[..., 5] = vals[..., 5] / torch.clamp(col[:, 0, :, 5], min=1e-12)
         ok = g["in_range"]
         out[g["slot"][ok]] = vals[ok].to(torch.float32)
     return out
@@ -187,5 +189,5 @@ def pair_counts(table, sorted_ids, tile_starts, tile_counts, tiles_x: int,
     for tiles, S in tile_groups(tile_counts, tile_size * tile_size):
         g = _geometry(table, sorted_ids, tile_starts, tile_counts, tiles, S,
                       tiles_x, tile_size, skip)
-        n += int(chain(g["alpha"], g["hit"])[3].sum())
+        n += int(chain(g["alpha"], g["hit"], -1)[3].sum())
     return n

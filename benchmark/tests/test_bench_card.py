@@ -1,20 +1,22 @@
 """The comparison that decides ``correct``, on the card at the cells' own
-sizes: the control (the plain reference computed with TF32 matrix
-products, the precision below the configurations' f32, put in the
-program's place) fails a limit, and the program passes them all.
+sizes: the control (the plain reference computed one precision below the
+configuration's: TF32 matrix products for the serve cells' f32, fp8
+products for the train cell's bf16; ``harness/<runner>.py::readings``) put
+in the program's place fails a limit, and the program passes them all.
 
     python -m pytest benchmark/tests -q -m gpu
 """
 
 from __future__ import annotations
 
+import importlib
 import json
 from pathlib import Path
 
 import pytest
 import torch
 
-from benchmark.harness import serve, spec
+from benchmark.harness import spec
 
 ROOT = Path(__file__).resolve().parents[2]
 SEED = 2**31 + 4242
@@ -35,7 +37,8 @@ def test_control_fails_and_the_program_passes(name):
         pytest.skip("needs an NVIDIA card")
     cell = _cell(name)
     dev = torch.device("cuda", 0)
-    control = serve.readings(cell.config, cell.traffic, SEED, dev, control=True)
-    assert any(v > cell.limits[k] for k, v in control.items()), control
-    sound = serve.readings(cell.config, cell.traffic, SEED, dev, control=False)
-    assert all(v <= cell.limits[k] for k, v in sound.items()), sound
+    runner = importlib.import_module(f"benchmark.harness.{cell.traffic['runner']}")
+    control = runner.readings(cell.config, cell.traffic, SEED, dev, control=True)
+    assert any(control[k] > lim for k, lim in cell.limits.items()), control
+    sound = runner.readings(cell.config, cell.traffic, SEED, dev, control=False)
+    assert all(sound[k] <= lim for k, lim in cell.limits.items()), sound

@@ -66,6 +66,9 @@ def tiny_checkout(tmp_path: Path, renderer: str = "3dgs") -> tuple:
          "why": "test"}]
     spec_["per_layer"] = [dict(m, workloads=m["workloads"] + ["tiny.serve"])
                           for m in real["per_layer"]]
+    spec_["end_to_end"] = [dict(m, workloads=m["workloads"] + ["tiny.serve"])
+                           if "serve.3dgs" in m.get("workloads", ()) else m
+                           for m in real["end_to_end"]]
     return spec_, bench
 
 
@@ -85,7 +88,8 @@ def test_every_cell_finds_its_files_by_name():
 
     for w in real["workloads"]:
         cell = spec.Cell(ROOT, real, w["name"])
-        assert cell.traffic["runner"] == "serve"
+        if cell.traffic["runner"] != "serve":       # test_bench_train.py
+            continue
         assert set(cell.limits) - {"depth_normal"} == {
             "prim_coarse", "prim_fine", "densifier", "sel_gap", "render"}
         assert ("depth_normal" in cell.limits) == (cell.config["model"]["renderer"] == "2dgs")
