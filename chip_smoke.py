@@ -74,9 +74,14 @@ Drives ``generativedensification_torch`` only (no JAX):
    model's 262,144 coarse surfels in view 0) at the serving and the 2DGS
    warmup budgets; the skip's kept shares (from the plain mirror
    ``surfel_kernels.subtile_touch``), each kernel timed with CUDA events;
-   then the full-width serving forward with exactly 16 surfel-forward and
-   4 surfel-backward launches (and no 3DGS launch), finite 2DGS maps, peak
-   memory, overflow and a device-time breakdown by stage;
+   the surfel set-up kernel (``csrc/prepass.cu`` ``gd_surfel_setup``)
+   against its plain chain on scene A' and on the model's coarse and fine
+   surfels in view 0 (bit for bit on the libraries its orders were
+   measured on), timed against the chain in turns (``surfel_setup_phase``);
+   then the full-width serving forward with exactly 16 surfel-forward, 4
+   surfel-backward and 16 surfel set-up launches (and no 3DGS launch),
+   finite 2DGS maps, peak memory, overflow and a device-time breakdown by
+   stage;
 8. the f32 train phases, each renderer: the training configuration
    (``load_config()``: ``mask_pool`` 49,152, k 12,000, drop-path 0.3, order
    shuffling, accumulation 2) with the warmup budgets of
@@ -2043,8 +2048,8 @@ def overfit_phase() -> dict:
         fwd, bwd = (("surfel_fwd", "surfel_bwd") if changes.get("renderer") == "2dgs"
                     else ("composite_fwd", "composite_bwd"))
         n_views = overfit.TINY["n_views"]
-        expect = expect_launches(kernels, **{fwd: steps * 2 * V,
-                                             bwd: steps * (n_views + 2 * V)})
+        expect = expect_launches(kernels, surfel_setup=0,
+                                 **{fwd: steps * 2 * V, bwd: steps * (n_views + 2 * V)})
         kernels.reset_launch_counts()
         r = overfit.run_case(case, batch=batch)
         launches = dict(kernels.launch_counts)
@@ -2067,10 +2072,12 @@ def expect_launches(kernels, **launches):
     """Launches per call: the given kernels, every other one 0, and each
     render's pre-pass: a 3DGS render (one ``composite_fwd``) launches each
     of ``project``, ``depth_rank``, ``tile_keys`` and ``tile_ranges`` once,
-    a 2DGS render (one ``surfel_fwd``) the three binning kernels."""
+    a 2DGS render (one ``surfel_fwd``) ``surfel_setup`` and the three
+    binning kernels.  A 2DGS render that autograd records sets its surfels
+    up by the plain chain: pass ``surfel_setup=0`` for training."""
     n3, n2 = launches.get("composite_fwd", 0), launches.get("surfel_fwd", 0)
-    prepass = dict(project=n3, depth_rank=n3 + n2, tile_keys=n3 + n2,
-                   tile_ranges=n3 + n2)
+    prepass = dict(project=n3, surfel_setup=n2, depth_rank=n3 + n2,
+                   tile_keys=n3 + n2, tile_ranges=n3 + n2)
     return {**dict.fromkeys(kernels.launch_counts, 0), **prepass, **launches}
 
 
@@ -2111,6 +2118,26 @@ def prepass_bytes(n: int, sh_coeffs: int, max_tiles: int) -> dict:
             "depth_rank": n * 16,
             "tile_keys": n * (33 + 4 * max_tiles),
             "tile_ranges": n * max_tiles * 25}
+
+
+def timed_views(fn, reps: int = 20) -> tuple:
+    """One warm-up call of ``fn``, then the median device ms (CUDA events
+    around each call) and host ms (its enqueue) of ``reps`` calls."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    dev_ms, host_ms = [], []
+    for _ in range(reps):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        fn()
+        e1.record()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        dev_ms.append(e0.elapsed_time(e1))
+    return statistics.median(dev_ms), statistics.median(host_ms)
 
 
 def prepass_phase(views: dict, tile_size: int, max_tiles: int,
@@ -2201,25 +2228,9 @@ def prepass_phase(views: dict, tile_size: int, max_tiles: int,
             c = torch.clamp(b.tile_counts, max=cap)
             return b.overflow + (b.tile_counts - c).sum().to(torch.int32)
 
-        def timed(fn, reps=20):
-            fn()
-            torch.cuda.synchronize()
-            dev_ms, host_ms = [], []
-            for _ in range(reps):
-                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
-                    enable_timing=True)
-                t0 = time.perf_counter()
-                e0.record()
-                fn()
-                e1.record()
-                host_ms.append((time.perf_counter() - t0) * 1e3)
-                torch.cuda.synchronize()
-                dev_ms.append(e0.elapsed_time(e1))
-            return statistics.median(dev_ms), statistics.median(host_ms)
-
         runs = {"kernels": [], "plain": []}
         for which in ("kernels", "plain", "plain", "kernels"):
-            runs[which].append(timed(kern if which == "kernels" else chain))
+            runs[which].append(timed_views(kern if which == "kernels" else chain))
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(10):
                 kern()
@@ -2243,6 +2254,89 @@ def prepass_phase(views: dict, tile_size: int, max_tiles: int,
                    kernel_ms=per_kernel, sorts_ms=sorts, bound_ms=bound,
                    pairs=int(counts.sum()), overflow=int(total))
         print(f"[prepass {label}] {json.dumps(rec)}")
+        recs[label] = rec
+    return recs
+
+
+SETUP_OUTPUTS = ("acr", "bcr", "ccr", "det", "xy", "depth", "conic", "color",
+                 "opacity_eff", "radius", "valid", "normal")
+
+
+def surfel_setup_phase(views: dict) -> dict:
+    """The 2DGS surfel set-up kernel (``csrc/prepass.cu`` ``gd_surfel_setup``)
+    against its plain chain, ``views`` {label: ``surfel_setup``'s inputs of
+    one view}: one launch, the outputs that differ in any bit, the largest
+    difference over the largest value, ``valid`` / ``radius`` flips, failing
+    above ``PROJECT_RTOL`` / ``PROJECT_FLIP_SHARE`` and, on the libraries
+    whose orders the kernel repeats (``orders_measured``), on any differing
+    bit; the kernel's mean device ms (the profiler, 10 views; None where it
+    records none of them), and the kernel
+    against the plain chain in turns (kernel, plain, plain, kernel; median
+    device ms of 20 views by CUDA events, host ms of their enqueue)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from generativedensification_torch.splat import kernels, surfel
+
+    recs = {}
+    for label, (means, scales, quats, opa, shs, cam) in views.items():
+        n = means.shape[0]
+        kernels.reset_launch_counts()
+        got = surfel.surfel_setup(means, scales, quats, opa, shs, cam, 1)
+        torch.cuda.synchronize()
+        if kernels.launch_counts["surfel_setup"] != 1 or sum(
+                kernels.launch_counts.values()) != 1:
+            fail(f"surfel setup ({label}): one call launched {dict(kernels.launch_counts)}")
+        ref = surfel._surfel_plain(cam, 1, means, scales, quats, opa, shs)
+        out = dict(zip(SETUP_OUTPUTS, got))
+        plain = dict(zip(SETUP_OUTPUTS, ref))
+        both = out["valid"] & plain["valid"]
+        flips = dict(valid=int((out["valid"] != plain["valid"]).sum()),
+                     radius=int((out["radius"][both] != plain["radius"][both]).sum()))
+        diff = {}
+        for name in SETUP_OUTPUTS:
+            a, b = out[name], plain[name]
+            bits = int((a != b).reshape(n, -1).any(-1).sum())
+            if name in ("valid", "radius"):
+                diff[name] = dict(bits=bits)
+                continue
+            if name in ("conic", "opacity_eff"):
+                a, b = a[both], b[both]
+            rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            diff[name] = dict(bits=bits, rel=rel)
+            if not rel <= PROJECT_RTOL:
+                fail(f"surfel setup ({label}): the kernel's {name} differs by {rel:.3g} "
+                     f"of its largest value (limit {PROJECT_RTOL})")
+        if sum(flips.values()) > PROJECT_FLIP_SHARE * n:
+            fail(f"surfel setup ({label}): the kernel flips {flips} of {n} surfels")
+        bitwise = not any(d["bits"] for d in diff.values())
+        if orders_measured() and not bitwise:
+            fail(f"surfel setup ({label}): the kernel is not bit for bit the plain "
+                 f"chain's on the libraries its orders were measured on: "
+                 f"{json.dumps(diff)}")
+
+        args = (means, scales, quats, opa, shs)
+        runs = {"kernel": [], "plain": []}
+        for which in ("kernel", "plain", "plain", "kernel"):
+            runs[which].append(timed_views(
+                (lambda: surfel._surfel_setup_kernel(cam, 1, *args)) if which == "kernel"
+                else (lambda: surfel._surfel_plain(cam, 1, *args))))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                surfel._surfel_setup_kernel(cam, 1, *args)
+            torch.cuda.synchronize()
+        evs = [ev for ev in prof.key_averages()
+               if "surfel_setup_kernel" in ev.key and ev.device_time_total > 0]
+        kernel_ms = (sum(ev.device_time_total for ev in evs)
+                     / sum(ev.count for ev in evs) / 1e3 if evs else None)
+        rec = dict(n=n, bitwise=bitwise, orders_measured=orders_measured(), diff=diff,
+                   flips=flips, valid=int(out["valid"].sum()), kernel_ms=kernel_ms,
+                   bound_ms=n * (88 + 97) / 3.35e12 * 1e3,
+                   device_ms=statistics.median(r[0] for r in runs["kernel"]),
+                   host_ms=statistics.median(r[1] for r in runs["kernel"]),
+                   plain_device_ms=statistics.median(r[0] for r in runs["plain"]),
+                   plain_host_ms=statistics.median(r[1] for r in runs["plain"]))
+        print(f"[surfel setup {label}] {json.dumps(rec)}")
         recs[label] = rec
     return recs
 
@@ -2475,6 +2569,15 @@ def main() -> int:
         del runs, sargs
         surfel_rec = surfel_scenes["model_512_262k_view0_surfels"]
         surfel_bwd_recs = surfel_bwd["model_512_262k_view0_surfels"]
+        # the surfel set-up kernel against its plain chain: scene A' and the
+        # model's coarse and fine surfels in view 0
+        surfel_views = {"surfels_bench_512_131k": scenes.surfel_bench_inputs(dev)}
+        for label, pkg in (("model_coarse_view0", out2["render_pkg"][0]),
+                           ("model_fine_view0", out2["render_pkg"][1])):
+            means, shs, opa, scales, quats, _ = render_inputs(pkg, cam)
+            surfel_views[label] = (means, scales[:, :2], quats, opa, shs, cam)
+        setup = surfel_setup_phase(surfel_views)
+        del surfel_views
         out_s, times_s, launches_s, peak_s = timed_forwards(
             net2, batch, True, expect(surfel_fwd=2 * V_TOTAL, surfel_bwd=N_VIEWS))
         check_outputs(out_s, 1, V_TOTAL, HW, HW, n_coarse, n_fine, surfels=True)
@@ -2503,14 +2606,14 @@ def main() -> int:
         "3dgs": train_phase("3dgs", batch, expect(composite_fwd=2 * V_TOTAL,
                                                   composite_bwd=n_bwd)),
         "2dgs": train_phase("2dgs", batch, expect(surfel_fwd=2 * V_TOTAL,
-                                                  surfel_bwd=n_bwd)),
+                                                  surfel_bwd=n_bwd, surfel_setup=0)),
     }
 
     # -- 8b. the bf16 compute policy beside f32 (same weights and batch, in
     # turns), and one 2DGS bf16 micro-step
     bf16 = bf16_phase(batch, expect(composite_fwd=2 * V_TOTAL, composite_bwd=N_VIEWS),
                       expect(composite_fwd=2 * V_TOTAL, composite_bwd=n_bwd),
-                      expect(surfel_fwd=2 * V_TOTAL, surfel_bwd=n_bwd))
+                      expect(surfel_fwd=2 * V_TOTAL, surfel_bwd=n_bwd, surfel_setup=0))
 
     # -- 8c. the train CLI at its config defaults (bf16, B=3), checkpoint
     # and resume
@@ -2705,6 +2808,7 @@ def main() -> int:
         "eval_full": eval_full, "residual": residual, "overfit": overfit, "tiny": tiny,
         "pyyaml": has_yaml,
         "scenes": [bench_rec, model_rec, warm_rec], "prepass": prepass,
+        "surfel_setup": setup,
         "composite_bwd": {"A": bwd_recs_a, "B": bwd_recs, "B_warmup": bwd_recs_warm},
         "adversarial": adversarial,
         "surfel_scenes": surfel_scenes, "surfel_bwd": surfel_bwd, "probes": probes}))

@@ -1,20 +1,30 @@
 // The renders' pre-pass for Hopper (sm_90a), plain C interface for ctypes:
-// the 3DGS projection (splat/projection.py) and the tile binning that the
-// 3DGS and 2DGS renderers share (splat/binning.py), in four kernels.
+// the 3DGS projection (splat/projection.py), the 2DGS surfel set-up
+// (splat/surfel.py) and the tile binning that the 3DGS and 2DGS renderers
+// share (splat/binning.py), in five kernels.
 //
-// Replaces no TPU kernel: the JAX package leaves project_gaussians and
-// bin_gaussians to XLA, which fuses each op chain into a few loops.  Eager
+// Replaces no TPU kernel: the JAX package leaves project_gaussians,
+// _surfel_setup and bin_gaussians to XLA, which fuses each op chain into a
+// few loops.  Eager
 // PyTorch ran the same chains as ~200 launches a view, each ~20 us of host
 // dispatch for well under 1 us of work, so the renders waited on the host's
 // launches and not on the card.  These kernels were added for the launch
 // count: a view's pre-pass is gd_project, the depth sort key (one
 // elementwise op), the library's stable depth sort, gd_depth_rank,
-// gd_tile_keys, the library's stable key sort and gd_tile_ranges.
+// gd_tile_keys, the library's stable key sort and gd_tile_ranges; a 2DGS
+// view's begins with gd_surfel_setup in gd_project's place.
 //
 //   gd_project      one thread per Gaussian: the quaternion normalisation,
 //                   the view and clip transforms, the EWA 2D covariance and
 //                   its conic, the screen radius and the culling, degree 0-3
 //                   SH colour and the opacity folded with validity.
+//   gd_surfel_setup one thread per surfel: the rotation's columns, the
+//                   view-space centre, tangent axes and normal (flipped
+//                   toward the camera), the homogeneous map M and its ray
+//                   coefficients acr / bcr / ccr / det, the centre's pixel,
+//                   the ±3σ endpoint radius and the culling, degree 0-3 SH
+//                   colour, the binning's circular conic and the opacity
+//                   folded with validity.
 //   gd_depth_rank   one thread per depth rank: the int32 order and its
 //                   inverse rank[order[i]] = i; zeroes the two counters.
 //   gd_tile_keys    one thread per Gaussian: the tile rectangle, the E-slot
@@ -43,11 +53,12 @@
 // intrinsics (nvcc would contract a*b+c into one FMA where the chain rounds
 // twice) with sqrtf / logf, the library functions the chain's kernels call;
 // torch.clamp and torch.maximum propagate NaN, so clamp_min / maximum do.
-// The projection follows the chain the same way; its 4-term dot products
-// and vector norms are library GEMMs and reductions on the chain's side,
-// whose summation order this kernel repeats as measured (dot4 / norm3 /
-// norm4): bit for bit at the serving shapes, and within rounding wherever
-// the library picks another order.
+// The projection and the surfel set-up follow their chains the same way;
+// their dot products, cross products, sums and vector norms are library
+// GEMMs, kernels and reductions on the chain's side, whose summation order
+// and contraction these kernels repeat as measured (dot4 / norm3 / norm4,
+// gemm3 / sum3 / cross_term / norm2): bit for bit at the serving shapes,
+// and within rounding wherever the library picks another order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -143,6 +154,46 @@ constexpr float C3_0 = -0.5900435899266435, C3_1 = 2.890611442640554,
                 C3_4 = -0.4570457994644658, C3_5 = 1.445305721320277,
                 C3_6 = -0.5900435899266435;
 
+// core/sh.py::eval_sh_color at degree DEG of one row of SH coefficients
+// `sh` ((DEG + 1)², 3) in the view direction (dx, dy, dz) = mean - centre,
+// into color[0..2]
+template <int DEG>
+__device__ __forceinline__ void sh_color(const float* sh, float dx, float dy, float dz,
+                                         float* color) {
+  const float dn = add(norm3(dx, dy, dz), 1e-12f);
+  const float X = dvd(dx, dn), Y = dvd(dy, dn), Z = dvd(dz, dn);
+  constexpr int NB = (DEG + 1) * (DEG + 1) - 1;
+  float basis[NB > 0 ? NB : 1];
+  if constexpr (DEG >= 1) {
+    basis[0] = mul(-C1, Y);
+    basis[1] = mul(C1, Z);
+    basis[2] = mul(-C1, X);
+  }
+  if constexpr (DEG >= 2) {
+    const float xx = mul(X, X), yy = mul(Y, Y), zz = mul(Z, Z);
+    const float xy_ = mul(X, Y), yz = mul(Y, Z), xz = mul(X, Z);
+    basis[3] = mul(C2_0, xy_);
+    basis[4] = mul(C2_1, yz);
+    basis[5] = mul(C2_2, sub(sub(mul(2.f, zz), xx), yy));
+    basis[6] = mul(C2_3, xz);
+    basis[7] = mul(C2_4, sub(xx, yy));
+    if constexpr (DEG >= 3) {
+      basis[8] = mul(mul(C3_0, Y), sub(mul(3.f, xx), yy));
+      basis[9] = mul(mul(C3_1, xy_), Z);
+      basis[10] = mul(mul(C3_2, Y), sub(sub(mul(4.f, zz), xx), yy));
+      basis[11] = mul(mul(C3_3, Z), sub(sub(mul(2.f, zz), mul(3.f, xx)), mul(3.f, yy)));
+      basis[12] = mul(mul(C3_4, X), sub(sub(mul(4.f, zz), xx), yy));
+      basis[13] = mul(mul(C3_5, Z), sub(xx, yy));
+      basis[14] = mul(mul(C3_6, X), sub(xx, mul(3.f, yy)));
+    }
+  }
+  for (int c = 0; c < 3; ++c) {
+    float acc = mul(C0, sh[c]);
+    for (int k = 0; k < NB; ++k) acc = add(acc, mul(basis[k], sh[3 * (k + 1) + c]));
+    color[c] = clamp_min(add(acc, 0.5f), 0.f);
+  }
+}
+
 template <int DEG>
 __global__ void __launch_bounds__(THREADS) project_kernel(ProjectArgs a) {
   // the camera, read once per block: W (4x4), F (4x4), centre, tan x / y
@@ -235,40 +286,8 @@ __global__ void __launch_bounds__(THREADS) project_kernel(ProjectArgs a) {
           (sub(y, rad) < fh) && (rad > 0.f);
 
   // view-dependent colour, SH degree DEG
-  const float dx = sub(px, cam[32]), dy = sub(py, cam[33]), dz = sub(pz, cam[34]);
-  const float dn = add(norm3(dx, dy, dz), 1e-12f);
-  const float X = dvd(dx, dn), Y = dvd(dy, dn), Z = dvd(dz, dn);
-  constexpr int NB = (DEG + 1) * (DEG + 1) - 1;
-  float basis[NB > 0 ? NB : 1];
-  if constexpr (DEG >= 1) {
-    basis[0] = mul(-C1, Y);
-    basis[1] = mul(C1, Z);
-    basis[2] = mul(-C1, X);
-  }
-  if constexpr (DEG >= 2) {
-    const float xx = mul(X, X), yy = mul(Y, Y), zz = mul(Z, Z);
-    const float xy_ = mul(X, Y), yz = mul(Y, Z), xz = mul(X, Z);
-    basis[3] = mul(C2_0, xy_);
-    basis[4] = mul(C2_1, yz);
-    basis[5] = mul(C2_2, sub(sub(mul(2.f, zz), xx), yy));
-    basis[6] = mul(C2_3, xz);
-    basis[7] = mul(C2_4, sub(xx, yy));
-    if constexpr (DEG >= 3) {
-      basis[8] = mul(mul(C3_0, Y), sub(mul(3.f, xx), yy));
-      basis[9] = mul(mul(C3_1, xy_), Z);
-      basis[10] = mul(mul(C3_2, Y), sub(sub(mul(4.f, zz), xx), yy));
-      basis[11] = mul(mul(C3_3, Z), sub(sub(mul(2.f, zz), mul(3.f, xx)), mul(3.f, yy)));
-      basis[12] = mul(mul(C3_4, X), sub(sub(mul(4.f, zz), xx), yy));
-      basis[13] = mul(mul(C3_5, Z), sub(xx, yy));
-      basis[14] = mul(mul(C3_6, X), sub(xx, mul(3.f, yy)));
-    }
-  }
-  const float* sh = a.shs + static_cast<int64_t>(i) * a.sh_stride;
-  for (int c = 0; c < 3; ++c) {
-    float acc = mul(C0, sh[c]);
-    for (int k = 0; k < NB; ++k) acc = add(acc, mul(basis[k], sh[3 * (k + 1) + c]));
-    a.color[3 * i + c] = clamp_min(add(acc, 0.5f), 0.f);
-  }
+  sh_color<DEG>(a.shs + static_cast<int64_t>(i) * a.sh_stride, sub(px, cam[32]),
+                sub(py, cam[33]), sub(pz, cam[34]), a.color + 3 * i);
 
   a.xy[2 * i] = x;
   a.xy[2 * i + 1] = y;
@@ -278,6 +297,177 @@ __global__ void __launch_bounds__(THREADS) project_kernel(ProjectArgs a) {
   a.conic[3 * i + 2] = mul(ca, inv_det);
   a.opa_eff[i] = valid ? a.opacity[i] : 0.f;
   a.radius[i] = valid ? rad : 0.f;
+  a.valid[i] = valid;
+}
+
+// ------------------------------------------------------------ surfel setup
+
+struct SurfelArgs {
+  const float* means;     // (N, 3)
+  const float* scales;    // (N, 2) activated, row stride scale_stride floats
+  const float* rot;       // (N, 4) wxyz, not normalised
+  const float* opacity;   // (N,) activated
+  const float* shs;       // (N, K, 3), row stride sh_stride floats
+  const float* wvt;       // world_view_transform (4, 4), strides wvt_r / wvt_c
+  const float* center;    // camera_center (3,), stride center_s
+  const float* tanx;      // tan_half_fovx ()
+  const float* tany;      // tan_half_fovy ()
+  float* acr;             // (N, 3) cr = acr + X·bcr + Y·ccr
+  float* bcr;             // (N, 3)
+  float* ccr;             // (N, 3)
+  float* det;             // (N,) det(M)
+  float* xy;              // (N, 2) the projected centre
+  float* depth;           // (N,) the centre's view-space z
+  float* conic;           // (N, 3) the binning's circle (lam, 0, lam)
+  float* color;           // (N, 3)
+  float* opa_eff;         // (N,) opacity where valid, else 0
+  float* radius;          // (N,) 0 where culled
+  bool* valid;            // (N,)
+  float* normal;          // (N, 3) view-space normal, flipped toward the camera
+  int scale_stride, sh_stride, wvt_r, wvt_c, center_s, n, width, height;
+  float margin;           // 3·sqrt(FILTER_2D_VAR) in f32
+};
+
+// The chain's library calls, in the summation order measured on the card
+// (torch 2.11, CUDA 12.8, at 262,144 and 331,744 surfels).
+// (x, y, z) @ (m0, m1, m2)ᵀ, the (N, 3) @ (3, 3) GEMM: an FMA chain over k
+// from the first product
+__device__ __forceinline__ float gemm3(float x, float y, float z, float m0, float m1,
+                                       float m2) {
+  return __fmaf_rn(z, m2, __fmaf_rn(y, m1, __fmul_rn(x, m0)));
+}
+// torch.sum over a last dim of 3: norm3's lane tree
+__device__ __forceinline__ float sum3(float a, float b, float c) {
+  return add(add(a, c), b);
+}
+// torch.linalg.cross's a·d − b·c, as nvcc contracts it in the library's
+// kernel: b·c rounded, then one FMA
+__device__ __forceinline__ float cross_term(float a, float d, float b, float c) {
+  return __fmaf_rn(a, d, -mul(b, c));
+}
+// torch.linalg.vector_norm over a last dim of 2
+__device__ __forceinline__ float norm2(float x, float y) {
+  return sqrtf(add(mul(x, x), mul(y, y)));
+}
+// amax / amin: NaN propagates
+__device__ __forceinline__ float minimum(float a, float b) {
+  return isnan(a) ? a : (isnan(b) ? b : fminf(a, b));
+}
+
+template <int DEG>
+__global__ void __launch_bounds__(THREADS) surfel_setup_kernel(SurfelArgs a) {
+  // the camera, read once per block: W (4x4), centre, tan x / y
+  __shared__ float cam[21];
+  const int t = threadIdx.x;
+  if (t < 16) cam[t] = a.wvt[(t >> 2) * a.wvt_r + (t & 3) * a.wvt_c];
+  else if (t < 19) cam[t] = a.center[(t - 16) * a.center_s];
+  else if (t == 19) cam[t] = *a.tanx;
+  else if (t == 20) cam[t] = *a.tany;
+  __syncthreads();
+  const int i = blockIdx.x * THREADS + t;
+  if (i >= a.n) return;
+  const float* W = cam;   // Rv = W[0:3, 0:3], tv = W[3, 0:3]
+  const float fw = static_cast<float>(a.width), fh = static_cast<float>(a.height);
+
+  // the rotation's columns of the normalised quaternion (_rot_cols)
+  const float* q = a.rot + 4 * i;
+  const float qn = add(norm4(q[0], q[1], q[2], q[3]), 1e-8f);
+  const float qw = dvd(q[0], qn), qx = dvd(q[1], qn), qy = dvd(q[2], qn),
+              qz = dvd(q[3], qn);
+  const float su = a.scales[static_cast<int64_t>(i) * a.scale_stride];
+  const float sv = a.scales[static_cast<int64_t>(i) * a.scale_stride + 1];
+  const float tu[3] = {mul(sub(1.f, mul(2.f, add(mul(qy, qy), mul(qz, qz)))), su),
+                       mul(mul(2.f, add(mul(qx, qy), mul(qw, qz))), su),
+                       mul(mul(2.f, sub(mul(qx, qz), mul(qw, qy))), su)};
+  const float tv[3] = {mul(mul(2.f, sub(mul(qx, qy), mul(qw, qz))), sv),
+                       mul(sub(1.f, mul(2.f, add(mul(qx, qx), mul(qz, qz)))), sv),
+                       mul(mul(2.f, add(mul(qy, qz), mul(qw, qx))), sv)};
+  const float nw[3] = {mul(2.f, add(mul(qx, qz), mul(qw, qy))),
+                       mul(2.f, sub(mul(qy, qz), mul(qw, qx))),
+                       sub(1.f, mul(2.f, add(mul(qx, qx), mul(qy, qy))))};
+
+  // view space: p = means @ Rv + tv, the axes and the normal @ Rv
+  const float px = a.means[3 * i], py = a.means[3 * i + 1], pz = a.means[3 * i + 2];
+  float p[3], u[3], v[3], nv[3];
+  for (int j = 0; j < 3; ++j) {
+    p[j] = add(gemm3(px, py, pz, W[j], W[4 + j], W[8 + j]), W[12 + j]);
+    u[j] = gemm3(tu[0], tu[1], tu[2], W[j], W[4 + j], W[8 + j]);
+    v[j] = gemm3(tv[0], tv[1], tv[2], W[j], W[4 + j], W[8 + j]);
+    nv[j] = gemm3(nw[0], nw[1], nw[2], W[j], W[4 + j], W[8 + j]);
+  }
+  // n = -sign(n·p) n: toward the camera (zero where n·p is 0)
+  const float np_ = sum3(mul(nv[0], p[0]), mul(nv[1], p[1]), mul(nv[2], p[2]));
+  const float flip = -static_cast<float>((np_ > 0.f) - (np_ < 0.f));
+
+  // M's rows, the (x·w, y·w, w) forms over (u, v, 1): cx = (W - 1) / 2
+  const float fx = mul(dvd(1.f, mul(2.f, cam[19])), fw);
+  const float fy = mul(dvd(1.f, mul(2.f, cam[20])), fh);
+  const float cx = (a.width - 1) * 0.5f, cy = (a.height - 1) * 0.5f;
+  const float Mx[3] = {add(mul(fx, u[0]), mul(cx, u[2])), add(mul(fx, v[0]), mul(cx, v[2])),
+                       add(mul(fx, p[0]), mul(cx, p[2]))};
+  const float My[3] = {add(mul(fy, u[1]), mul(cy, u[2])), add(mul(fy, v[1]), mul(cy, v[2])),
+                       add(mul(fy, p[1]), mul(cy, p[2]))};
+  const float Mw[3] = {u[2], v[2], p[2]};
+  // _surfel_coeffs: acr = Mx × My, bcr = My × Mw, ccr = Mw × Mx, det = Mw · acr
+  auto cross = [](const float* x, const float* y, float* out) {
+    out[0] = cross_term(x[1], y[2], x[2], y[1]);
+    out[1] = cross_term(x[2], y[0], x[0], y[2]);
+    out[2] = cross_term(x[0], y[1], x[1], y[0]);
+  };
+  float acr[3], bcr[3], ccr[3];
+  cross(Mx, My, acr);
+  cross(My, Mw, bcr);
+  cross(Mw, Mx, ccr);
+  const float det = sum3(mul(Mw[0], acr[0]), mul(Mw[1], acr[1]), mul(Mw[2], acr[2]));
+
+  // the centre on the screen, and the radius over the four ±3σ endpoints
+  const float z = p[2];
+  const float w = clamp_min(z, 1e-6f);
+  const float cxy = add(dvd(mul(fx, p[0]), w), cx);
+  const float cyy = add(dvd(mul(fy, p[1]), w), cy);
+  float rad = 0.f, zmin = 0.f;
+  for (int e = 0; e < 4; ++e) {
+    const float* axis = e < 2 ? u : v;
+    float end[3];
+    for (int j = 0; j < 3; ++j) {
+      const float d = mul(3.f, axis[j]);
+      end[j] = (e & 1) ? sub(p[j], d) : add(p[j], d);
+    }
+    const float ze = clamp_min(end[2], 1e-6f);
+    const float ex = add(dvd(mul(fx, end[0]), ze), cx);
+    const float ey = add(dvd(mul(fy, end[1]), ze), cy);
+    const float r = norm2(sub(ex, cxy), sub(ey, cyy));
+    rad = e == 0 ? r : maximum(rad, r);
+    zmin = e == 0 ? end[2] : minimum(zmin, end[2]);
+  }
+  rad = ceilf(add(rad, a.margin));
+  const bool valid = (z > 0.2f) && (zmin > 0.05f) && (add(cxy, rad) > 0.f) &&
+                     (sub(cxy, rad) < fw) && (add(cyy, rad) > 0.f) && (sub(cyy, rad) < fh);
+  const float radius = valid ? rad : 0.f;
+
+  // the binning's isotropic conic lam = 2·tau / R², tau floored at 1e-6
+  const float opa = a.opacity[i];
+  const float tau = logf(mul(clamp_min(opa, 1e-12f), 255.f));
+  const float rc = clamp_min(radius, 1.f);
+  const float lam = dvd(mul(2.f, clamp_min(tau, 1e-6f)), mul(rc, rc));
+
+  sh_color<DEG>(a.shs + static_cast<int64_t>(i) * a.sh_stride, sub(px, cam[16]),
+                sub(py, cam[17]), sub(pz, cam[18]), a.color + 3 * i);
+  for (int j = 0; j < 3; ++j) {
+    a.acr[3 * i + j] = acr[j];
+    a.bcr[3 * i + j] = bcr[j];
+    a.ccr[3 * i + j] = ccr[j];
+    a.normal[3 * i + j] = mul(flip, nv[j]);
+  }
+  a.det[i] = det;
+  a.xy[2 * i] = cxy;
+  a.xy[2 * i + 1] = cyy;
+  a.depth[i] = z;
+  a.conic[3 * i] = lam;
+  a.conic[3 * i + 1] = 0.f;
+  a.conic[3 * i + 2] = lam;
+  a.opa_eff[i] = valid ? opa : 0.f;
+  a.radius[i] = radius;
   a.valid[i] = valid;
 }
 
@@ -486,6 +676,30 @@ extern "C" int gd_project(const float* means, const float* shs, int sh_stride,
     case 1: project_kernel<1><<<blocks(n), THREADS, 0, s>>>(a); break;
     case 2: project_kernel<2><<<blocks(n), THREADS, 0, s>>>(a); break;
     case 3: project_kernel<3><<<blocks(n), THREADS, 0, s>>>(a); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int gd_surfel_setup(const float* means, const float* scales, int scale_stride,
+                               const float* rot, const float* opacity, const float* shs,
+                               int sh_stride, const float* wvt, int wvt_r, int wvt_c,
+                               const float* center, int center_s, const float* tanx,
+                               const float* tany, int n, int width, int height, int degree,
+                               float margin, float* acr, float* bcr, float* ccr, float* det,
+                               float* xy, float* depth, float* conic, float* color,
+                               float* opa_eff, float* radius, bool* valid, float* normal,
+                               void* stream) {
+  if (n <= 0) return 0;
+  SurfelArgs a{means, scales, rot, opacity, shs, wvt, center, tanx, tany, acr, bcr, ccr,
+               det, xy, depth, conic, color, opa_eff, radius, valid, normal,
+               scale_stride, sh_stride, wvt_r, wvt_c, center_s, n, width, height, margin};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (degree) {
+    case 0: surfel_setup_kernel<0><<<blocks(n), THREADS, 0, s>>>(a); break;
+    case 1: surfel_setup_kernel<1><<<blocks(n), THREADS, 0, s>>>(a); break;
+    case 2: surfel_setup_kernel<2><<<blocks(n), THREADS, 0, s>>>(a); break;
+    case 3: surfel_setup_kernel<3><<<blocks(n), THREADS, 0, s>>>(a); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -11,8 +11,9 @@ Replaces ``generativedensification_tpu/splat/pallas_kernels.py``'s
 ``surfel_kernels.py`` and the stage probes of the two forwards
 (``csrc/composite_fwd_probe.cu``, ``csrc/surfel_fwd_probe.cu``) in
 ``probe_kernels.py``, and the renders' pre-pass (``csrc/prepass.cu``: the
-projection and the tile binning, which replace no TPU kernel) in
-``projection.py`` and ``binning.py``; all are registered here, so that
+projection, the surfel set-up and the tile binning, which replace no TPU
+kernel) in ``projection.py``, ``surfel.py`` and ``binning.py``; all are
+registered here, so that
 ``build()`` compiles every source and ``launch_counts`` counts every
 launch.  Each source is
 built with ``nvcc`` for ``sm_90a`` into a plain-C shared library at first
@@ -83,7 +84,8 @@ NVCC_FLAGS = (
 launch_counts = {"composite_fwd": 0, "composite_bwd": 0, "surfel_fwd": 0,
                  "surfel_bwd": 0, "reduce_slots": 0, "transpose_rows": 0,
                  "composite_fwd_probe": 0, "surfel_fwd_probe": 0, "project": 0,
-                 "depth_rank": 0, "tile_keys": 0, "tile_ranges": 0}
+                 "surfel_setup": 0, "depth_rank": 0, "tile_keys": 0,
+                 "tile_ranges": 0}
 
 
 def reset_launch_counts() -> None:
@@ -108,7 +110,7 @@ class _Library:
         self.build_log = ""
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _libraries = {
     "composite_fwd": _Library("composite_fwd", [_P] * 5 + [_I] * 3 + [_P]),
     "composite_bwd": _Library("composite_bwd", [_P] * 7 + [_I] * 4 + [_P]),
@@ -123,6 +125,8 @@ _libraries = {
     "prepass": _Library("prepass", {
         "project": [_P, _P, _I] + [_P] * 5 + [_I] * 2 + [_P] + [_I] * 2 + [_P, _I]
                    + [_P] * 2 + [_I] * 4 + [_P] * 8,
+        "surfel_setup": [_P, _P, _I] + [_P] * 3 + [_I, _P, _I, _I, _P, _I, _P, _P]
+                        + [_I] * 4 + [_F] + [_P] * 13,
         "depth_rank": [_P] * 3 + [_I] + [_P] * 2,
         "tile_keys": [_P] * 9 + [_I] * 7 + [_P],
         "tile_ranges": [_P] * 12 + [_I] * 5 + [_P],

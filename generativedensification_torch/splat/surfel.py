@@ -13,8 +13,12 @@ so every surfel carries the ten coefficients acr, bcr, ccr, det
 (the depth at the T = 0.5 crossing), the view-space normal map and the
 distortion map of the 2DGS regularizers.
 
-The per-tile work is ``surfel_kernels.surfel_fwd`` / ``surfel_bwd`` (the
-CUDA kernels for tensors on the card, their plain versions for CPU tensors).
+The per-surfel set-up is ``surfel_setup``: one launch of the
+``surfel_setup`` kernel (``csrc/prepass.cu``) for card tensors that no
+autograd records, the plain chain (``_surfel_setup``, ``_surfel_coeffs``)
+for CPU tensors and for training.  The per-tile work is
+``surfel_kernels.surfel_fwd`` / ``surfel_bwd`` (the CUDA kernels for tensors
+on the card, their plain versions for CPU tensors).
 ``composite_surfels_backward`` turns the six output cotangents into
 per-surfel gradients (``full``) or the AbsGS selection gradients
 (``selonly``), summing each surfel's slot rows by ``composite.APOS_MODE``.
@@ -36,6 +40,7 @@ from ..core.transforms import normalize_quat
 from ..utils import tracing
 from .binning import bin_and_cap
 from .composite import _tile, _untile, mse_image_cotangent, slots_to_gaussians
+from .kernels import MAIN_KERNELS, build, launch_counts
 from .projection import ProjectedGaussians
 from .surfel_kernels import (
     BX,
@@ -52,6 +57,11 @@ from .surfel_kernels import (
     surfel_bwd,
     surfel_fwd,
 )
+
+
+# the screen radius's filter margin 3·sqrt(FILTER_2D_VAR) in f32, as the JAX
+# package rounds it: a Python float, so that no render copies it to the card
+MARGIN = float(3.0 * torch.sqrt(torch.tensor(FILTER_2D_VAR, dtype=torch.float32)))
 
 
 @dataclasses.dataclass
@@ -128,9 +138,7 @@ def _surfel_setup(means3d, scales2d, rotations, opacity, shs, camera,
     exy = torch.stack([fx * ends[..., 0] / ze + cx, fy * ends[..., 1] / ze + cy],
                       dim=-1)
     radius = torch.linalg.vector_norm(exy - center_xy[:, None], dim=-1).amax(dim=1)
-    # 3·sqrt(2) in f32, as the JAX package rounds it
-    margin = 3.0 * torch.sqrt(torch.tensor(FILTER_2D_VAR, dtype=f32))
-    radius = torch.ceil(radius + margin.to(radius.device))
+    radius = torch.ceil(radius + MARGIN)
 
     valid = (depth > NEAR_CULL) & (ends[..., 2].amin(dim=1) > 0.05)
     on_screen = (
@@ -334,6 +342,100 @@ def composite_surfels_sel(acr, bcr, ccr, det, xy, rad, color, opacity, normal,
         bins, dims, n_slots or bins[0].shape[0])
 
 
+def _surfel_plain(camera, sh_degree, means3d, scales2d, rotations, opacities,
+                  shs) -> tuple:
+    """``surfel_setup``'s plain chain."""
+    M, n_view, xy, depth, color, radius, valid = _surfel_setup(
+        means3d, scales2d, rotations, opacities, shs, camera, sh_degree)
+    acr, bcr, ccr, det = _surfel_coeffs(M)
+    # The compositor cuts every surfel at its screen radius R, so an
+    # isotropic conic lam = 2·tau/R² makes bin_gaussians' ellipse bound fire
+    # exactly at screen distance d > R; the floor on tau keeps lam a valid
+    # conic for surfels that can contribute nothing (opacity <= 1/255), so
+    # that all their tiles are culled.
+    opacity_f = opacities.to(torch.float32)
+    tau = torch.log(torch.clamp(opacity_f, min=1e-12) * 255.0)
+    lam = 2.0 * torch.clamp(tau, min=1e-6) / torch.clamp(radius, min=1.0) ** 2
+    conic = torch.stack([lam, torch.zeros_like(lam), lam], dim=-1)
+    opacity_eff = torch.where(valid, opacity_f, torch.zeros_like(opacity_f))
+    return (acr, bcr, ccr, det, xy, depth, conic, color, opacity_eff, radius, valid,
+            n_view)
+
+
+def _surfel_camera(camera):
+    return (camera.world_view_transform, camera.camera_center, camera.tan_half_fovx,
+            camera.tan_half_fovy)
+
+
+def _surfel_setup_kernel(camera, sh_degree, means3d, scales2d, rotations,
+                         opacities, shs) -> tuple:
+    """One launch of the surfel set-up kernel: ``surfel_setup``'s tuple for
+    one view."""
+    f32 = torch.float32
+    dev = means3d.device
+    N = means3d.shape[0]
+    if not 0 <= sh_degree <= 3:
+        raise ValueError(f"the surfel set-up kernel takes SH degree 0-3, got {sh_degree}")
+    f = lambda t: t.detach().to(f32).contiguous()
+    means3d, rotations, opacities, shs = f(means3d), f(rotations), f(opacities), f(shs)
+    scales2d = scales2d.detach().to(f32)
+    if scales2d.dim() != 2 or scales2d.stride(-1) != 1:
+        scales2d = scales2d.contiguous()
+    for name, t, shape in (("means3d", means3d, (N, 3)), ("scales2d", scales2d, (N, 2)),
+                           ("rotations", rotations, (N, 4)), ("opacities", opacities, (N,))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    if shs.dim() != 3 or shs.shape[0] != N or shs.shape[2] != 3 \
+            or shs.shape[1] < (sh_degree + 1) ** 2:
+        raise ValueError(f"shs must be ({N}, >= {(sh_degree + 1) ** 2}, 3), got "
+                         f"{tuple(shs.shape)}")
+    wvt, center, tanx, tany = _surfel_camera(camera)
+    if any(t.device != dev or t.dtype != f32 for t in (wvt, center, tanx, tany)):
+        raise ValueError("the camera's tensors must be float32 on the surfels' device")
+    if wvt.shape != (4, 4) or center.shape != (3,) or tanx.dim() or tany.dim():
+        raise ValueError("the surfel set-up kernel takes one camera (no batch dims)")
+    e = lambda shape, dtype=f32: torch.empty(shape, dtype=dtype, device=dev)
+    outs = (e((N, 3)), e((N, 3)), e((N, 3)), e(N), e((N, 2)), e(N), e((N, 3)),
+            e((N, 3)), e(N), e(N), e(N, torch.bool), e((N, 3)))
+    if N:
+        lib = build(MAIN_KERNELS)["prepass"].lib
+        with torch.cuda.device(dev):
+            err = lib.gd_surfel_setup(
+                means3d.data_ptr(), scales2d.data_ptr(), scales2d.stride(0),
+                rotations.data_ptr(), opacities.data_ptr(), shs.data_ptr(), shs.stride(0),
+                wvt.data_ptr(), *wvt.stride(), center.data_ptr(), center.stride(0),
+                tanx.data_ptr(), tany.data_ptr(), N, camera.width, camera.height,
+                sh_degree, MARGIN, *(o.data_ptr() for o in outs),
+                torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"surfel_setup launch failed: CUDA error {err}")
+        launch_counts["surfel_setup"] += 1
+    return outs
+
+
+def surfel_setup(means3d, scales2d, rotations, opacities, shs, camera,
+                 sh_degree: int) -> tuple:
+    """Screen set-up of N activated surfels in one camera: (acr, bcr, ccr,
+    det, xy, depth, conic, color, opacity_eff, radius, valid, normal), the
+    binning's circular conic and the opacity zeroed where the surfel is
+    culled.  Card tensors launch the ``surfel_setup`` kernel
+    (``csrc/prepass.cu``: bit for bit the plain chain where its library
+    orders are the measured ones); CPU tensors, and any call that autograd
+    records, take the plain chain (``_surfel_setup``, ``_surfel_coeffs``)."""
+    inputs = (means3d, scales2d, rotations, opacities, shs)
+    if means3d.device.type == "cpu" or (torch.is_grad_enabled() and any(
+            t.requires_grad for t in (*inputs, *_surfel_camera(camera)))):
+        return _surfel_plain(camera, sh_degree, *inputs)
+    return _surfel_setup_kernel(camera, sh_degree, *inputs)
+
+
+def _planes(camera, dev) -> torch.Tensor:
+    """(2,) f32 [znear, zfar] on ``dev``, made there (no host copy)."""
+    on = lambda v: (v.to(torch.float32) if isinstance(v, torch.Tensor) and v.device == dev
+                    else torch.full((), float(v), dtype=torch.float32, device=dev))
+    return torch.stack([on(camera.znear), on(camera.zfar)])
+
+
 @dataclasses.dataclass
 class SurfelInputs:
     """What the compositing boundary takes for one view."""
@@ -357,30 +459,19 @@ def surfel_inputs(means3d, shs, opacities, scales2d, rotations, camera,
     N = means3d.shape[0]
     max_per_tile = min(max_per_tile, N * max_tiles)
     with tracing.span("gd.project"):
-        M, n_view, xy, depth, color, radius, valid = _surfel_setup(
-            means3d, scales2d, rotations, opacities, shs, camera, sh_degree)
-        acr, bcr, ccr, det = _surfel_coeffs(M)
-        # The compositor cuts every surfel at its screen radius R, so an
-        # isotropic conic lam = 2·tau/R² makes bin_gaussians' ellipse bound
-        # fire exactly at screen distance d > R; the floor on tau keeps lam a
-        # valid conic for surfels that can contribute nothing (opacity <=
-        # 1/255), so that all their tiles are culled.
-        opacity_f = opacities.to(torch.float32)
-        tau = torch.log(torch.clamp(opacity_f, min=1e-12) * 255.0)
-        lam = 2.0 * torch.clamp(tau, min=1e-6) / torch.clamp(radius, min=1.0) ** 2
-        conic_circ = torch.stack([lam, torch.zeros_like(lam), lam], dim=-1)
-    proj = ProjectedGaussians(xy=xy, depth=depth, conic=conic_circ, color=color,
-                              opacity=opacity_f, radius=radius, valid=valid)
-    opacity_eff = torch.where(valid, opacity_f, torch.zeros_like(opacity_f))
+        (acr, bcr, ccr, det, xy, depth, conic, color, opacity_eff, radius, valid,
+         n_view) = surfel_setup(means3d, scales2d, rotations, opacities, shs, camera,
+                                sh_degree)
+    proj = ProjectedGaussians(xy=xy, depth=depth, conic=conic, color=color,
+                              opacity=opacities.to(torch.float32), radius=radius,
+                              valid=valid)
     with tracing.span("gd.bin"):
         bins, tile_counts, overflow = bin_and_cap(
             proj, camera.height, camera.width, tile_size, max_tiles, max_per_tile,
             enum_tiles=enum_tiles)
-    planes = torch.stack([torch.as_tensor(camera.znear), torch.as_tensor(camera.zfar)]
-                         ).to(device=xy.device, dtype=torch.float32)
     return SurfelInputs(
         attrs=(acr, bcr, ccr, det, xy, radius.detach(), color, opacity_eff, n_view),
-        planes=planes,
+        planes=_planes(camera, xy.device),
         bins=(bins.sorted_ids, bins.sorted_o, bins.depth_order, bins.tile_starts,
               tile_counts),
         dims=(bins.tiles_x, bins.tiles_y, tile_size),

@@ -13,8 +13,9 @@ kernels' own inputs (projected or set up, binned and packed by the port).
   serving networks' 262,144 coarse and 331,744 fine Gaussians at 512², a
   tenth of them off-screen or behind the camera);
 - the adversarial scene of the compositors' footprint skip (256²,
-  ``adversarial_scene``), and of the surfel kernels' screen-circle skip
-  (``surfel_adversarial_scene``).
+  ``adversarial_scene``), of the surfel kernels' screen-circle skip
+  (``surfel_adversarial_scene``), and of the surfel set-up kernel
+  (``surfel_setup_scene``: 512², 262,144 surfels).
 
 The budgets (``max_tiles``, ``enum_tiles``, ``max_per_tile``) default to the
 serving configuration's and can be set to the train step's warmup budgets.
@@ -147,12 +148,103 @@ def prepass_scene(dev, n, height=512, width=None, seed=0, sh_degree=1,
     return f(means), shs, opa, scales, quats, cam
 
 
+def _quat_of(rot):
+    """wxyz quaternions (n, 4) of rotation matrices (n, 3, 3)."""
+    w = np.sqrt(np.maximum(1.0 + rot[:, 0, 0] + rot[:, 1, 1] + rot[:, 2, 2], 1e-12)) / 2
+    x = np.sqrt(np.maximum(1.0 + rot[:, 0, 0] - rot[:, 1, 1] - rot[:, 2, 2], 0.0)) / 2
+    y = np.sqrt(np.maximum(1.0 - rot[:, 0, 0] + rot[:, 1, 1] - rot[:, 2, 2], 0.0)) / 2
+    z = np.sqrt(np.maximum(1.0 - rot[:, 0, 0] - rot[:, 1, 1] + rot[:, 2, 2], 0.0)) / 2
+    x = np.copysign(x, rot[:, 2, 1] - rot[:, 1, 2])
+    y = np.copysign(y, rot[:, 0, 2] - rot[:, 2, 0])
+    z = np.copysign(z, rot[:, 1, 0] - rot[:, 0, 1])
+    return np.stack([w, x, y, z], -1)
+
+
+def surfel_setup_scene(dev, n=262144, hw=512, seed=0):
+    """The surfel set-up's adversarial scene: ``rasterize_surfels``' inputs
+    (means, degree-1 SH, activated opacity, 2-D scales, raw quaternions,
+    camera: ``prepass_scene``'s) for ``n`` surfels at ``hw``², built in view
+    space, six tenths ordinary and a tenth in each other group:
+
+    - ordinary surfels over the screen and 32 px around it;
+    - edge-on surfels: the normal across the view ray up to 1e-6-1e-3 rad,
+      so that n·p (the flip) and det(M) (the depth pole z = det / cr_z) sit
+      near 0;
+    - centres around the near cull, view z in [-0.3, 0.4];
+    - centres at z in [0.2, 0.5] with axes long enough that a ±3σ endpoint
+      falls around z = 0.05;
+    - centres just off the screen: beyond an edge by 0.8-1.8 of a screen
+      radius of 2-40 px, plus the filter margin;
+    - over the whole scene, a tenth of the opacities from {0, 1e-13, 1e-12,
+      2e-12, 1/255 and its float32 neighbours, 0.5, 1}, and one in 200 each
+      with zero scales or a zero quaternion."""
+    rng = np.random.default_rng(seed)
+    f = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    *_, cam = prepass_scene("cpu", 1, hw, seed=seed)
+    fx, c = float(cam.focal_x), (hw - 1) / 2.0
+    m = n // 10
+    group = np.clip(np.arange(n) // m - 5, 0, 4)   # 0 ordinary, the first 6 tenths
+    z = rng.uniform(0.8, 3.0, n)
+    pix = rng.uniform(-32.0, hw + 32.0, (n, 2))
+    scales = np.exp(rng.uniform(np.log(0.002), np.log(0.05), (n, 2)))
+    quats = rng.normal(size=(n, 4))
+    z = np.where(group == 2, rng.uniform(-0.3, 0.4, n), z)
+    z = np.where(group == 3, rng.uniform(0.2, 0.5, n), z)
+    scales = np.where((group == 3)[:, None],
+                      np.exp(rng.uniform(np.log(0.02), np.log(0.3), (n, 2))), scales)
+    # just off the screen: the centre beyond an edge by 0.8-1.8 of a face-on
+    # screen radius r, plus the filter margin
+    r = rng.uniform(2.0, 40.0, n)
+    edge = rng.integers(0, 4, n)
+    beyond = r * rng.uniform(0.8, 1.8, n) + 4.2
+    off = np.where(edge % 2 == 0, -beyond, hw - 1.0 + beyond)
+    axis = edge // 2
+    pix[group == 4, 0] = np.where(axis == 0, off, pix[:, 0])[group == 4]
+    pix[group == 4, 1] = np.where(axis == 1, off, pix[:, 1])[group == 4]
+    scales = np.where((group == 4)[:, None], (r * z / (3.0 * fx))[:, None], scales)
+    view = np.stack([(pix[:, 0] - c) * z / fx, (pix[:, 1] - c) * z / fx, z], -1)
+    # edge-on: a rotation whose third column (the normal) is across the ray
+    edge_on = group == 1
+    k = int(edge_on.sum())
+    ray = view[edge_on] / np.linalg.norm(view[edge_on], axis=1, keepdims=True)
+    nrm = np.cross(ray, rng.normal(size=(k, 3)))
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    tilt = np.exp(rng.uniform(np.log(1e-6), np.log(1e-3), k))[:, None]
+    nrm = nrm + tilt * rng.choice([-1.0, 1.0], (k, 1)) * ray
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    tu = np.cross(nrm, rng.normal(size=(k, 3)))
+    tu /= np.linalg.norm(tu, axis=1, keepdims=True)
+    R_c2w = cam.world_view_transform[:3, :3].double().numpy()     # view -> world
+    rot_view = np.stack([tu, np.cross(nrm, tu), nrm], -1)
+    quats[edge_on] = _quat_of(R_c2w @ rot_view)
+    c2w_t = -cam.camera_center.double().numpy()
+    means = view @ R_c2w.T + c2w_t
+    opa = 1.0 / (1.0 + np.exp(-rng.normal(size=n)))
+    special = np.array([0.0, 1e-13, 1e-12, 2e-12, np.nextafter(np.float32(1 / 255), 0),
+                        np.float32(1 / 255), np.nextafter(np.float32(1 / 255), 1), 0.5, 1.0])
+    pick = rng.uniform(size=n) < 0.1
+    opa[pick] = rng.choice(special, int(pick.sum()))
+    scales[rng.uniform(size=n) < 0.005] = 0.0
+    quats[rng.uniform(size=n) < 0.005] = 0.0
+    shs = rng.normal(size=(n, 4, 3)) * 0.3 + 0.2
+    cam_dev = Camera(**{k_: (v.to(dev) if isinstance(v, torch.Tensor) else v)
+                        for k_, v in vars(cam).items()})
+    return f(means), f(shs), f(opa), f(scales), f(quats), cam_dev
+
+
+def surfel_bench_inputs(dev, scales="default", n=131072, hw=512):
+    """Scene A′'s surfels as ``surfel.surfel_setup`` takes them (means, 2-D
+    scales, raw quaternions, opacity, SH, camera)."""
+    smin, smax = (0.004, 0.02) if scales == "free" else (0.002, 0.01)
+    means, shs, opa, s2, quats, cam = _bench_arrays(dev, n, hw, 2, smin, smax)
+    return means, s2, quats, opa, shs, cam
+
+
 def surfel_bench_scene(dev, scales="default", tile_size=32, max_tiles=4,
                        n=131072, hw=512, max_per_tile=4096, enum_tiles=None):
     """Scene A′: the surfel form of scene A (``scripts/dev_surfel_break.py``),
     2-D scales in [0.002, 0.01], or [0.004, 0.02] with ``scales="free"``."""
-    smin, smax = (0.004, 0.02) if scales == "free" else (0.002, 0.01)
-    means, shs, opa, s2, quats, cam = _bench_arrays(dev, n, hw, 2, smin, smax)
+    means, s2, quats, opa, shs, cam = surfel_bench_inputs(dev, scales, n, hw)
     return surfel_kernel_inputs(means, shs, opa, s2, normalize_quat(quats), cam,
                                 tile_size, max_tiles, max_per_tile, enum_tiles)
 

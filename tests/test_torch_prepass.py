@@ -331,7 +331,8 @@ def test_render_adds_no_host_sync(cuda_device):
 @pytest.mark.gpu
 def test_one_view_launches(cuda_device):
     """One 3DGS view: one launch of each pre-pass kernel and of the
-    compositor; the 2DGS renderer's view the three binning kernels."""
+    compositor; the 2DGS renderer's view the surfel set-up and the three
+    binning kernels."""
     from generativedensification_torch.splat.surfel import rasterize_surfels
 
     means, shs, opa, scales, quats, cam = prepass_scene(cuda_device, 20000, 256, seed=5)
@@ -345,5 +346,5 @@ def test_one_view_launches(cuda_device):
         kernels.reset_launch_counts()
         rasterize_surfels(means, shs, opa, scales[:, :2], quats, cam, bg, 1, max_tiles=4)
         assert kernels.launch_counts == {
-            **dict.fromkeys(kernels.launch_counts, 0), "depth_rank": 1, "tile_keys": 1,
-            "tile_ranges": 1, "surfel_fwd": 1}
+            **dict.fromkeys(kernels.launch_counts, 0), "surfel_setup": 1, "depth_rank": 1,
+            "tile_keys": 1, "tile_ranges": 1, "surfel_fwd": 1}
