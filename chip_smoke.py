@@ -160,6 +160,7 @@ Exits non-zero, printing no result, without a card or outside a checkout.
 
 from __future__ import annotations
 
+import dataclasses
 import importlib.metadata
 import json
 import statistics
@@ -1460,7 +1461,7 @@ def cli_phase() -> dict:
 
     n_steps = len(marks["deltas"])
     n_train, n_val = marks["lens"][:2]
-    per_step = expect_launches(kernels, composite_fwd=2 * V_TOTAL * B,
+    per_step = expect_launches(kernels, backward=True, composite_fwd=2 * V_TOTAL * B,
                                composite_bwd=(2 * V_TOTAL + N_VIEWS) * B)
     bad = [i for i, d in enumerate(marks["deltas"]) if d != per_step]
     if n_steps != n_train // B or int(n_val * CLI_VAL_FRACTION) // B != 1 or bad:
@@ -1734,7 +1735,8 @@ def eval_phase(residual: bool = False) -> dict:
     if not report or report["unconsumed"] or report["unfilled"]:
         fail(f"{tag}: the synthesized reference checkpoint did not load fully: "
              f"unconsumed {report.get('unconsumed')}, unfilled {report.get('unfilled')}")
-    expect_step = expect_launches(kernels, composite_fwd=N_VIEWS, composite_bwd=N_VIEWS)
+    expect_step = expect_launches(kernels, backward=True, composite_fwd=N_VIEWS,
+                                  composite_bwd=N_VIEWS)
     if len(rec["ft_ms"]) != ft_steps:
         fail(f"{tag}: {len(rec['ft_ms'])} finetune steps, expected {ft_steps}")
     bad = [i for i, l in enumerate(rec["ft_launches"]) if l != expect_step]
@@ -2048,7 +2050,7 @@ def overfit_phase() -> dict:
         fwd, bwd = (("surfel_fwd", "surfel_bwd") if changes.get("renderer") == "2dgs"
                     else ("composite_fwd", "composite_bwd"))
         n_views = overfit.TINY["n_views"]
-        expect = expect_launches(kernels, surfel_setup=0,
+        expect = expect_launches(kernels, backward=True, surfel_setup=0,
                                  **{fwd: steps * 2 * V, bwd: steps * (n_views + 2 * V)})
         kernels.reset_launch_counts()
         r = overfit.run_case(case, batch=batch)
@@ -2068,16 +2070,19 @@ def overfit_phase() -> dict:
     return recs
 
 
-def expect_launches(kernels, **launches):
+def expect_launches(kernels, backward: bool = False, **launches):
     """Launches per call: the given kernels, every other one 0, and each
     render's pre-pass: a 3DGS render (one ``composite_fwd``) launches each
     of ``project``, ``depth_rank``, ``tile_keys`` and ``tile_ranges`` once,
     a 2DGS render (one ``surfel_fwd``) ``surfel_setup`` and the three
     binning kernels.  A 2DGS render that autograd records sets its surfels
-    up by the plain chain: pass ``surfel_setup=0`` for training."""
+    up by the plain chain: pass ``surfel_setup=0`` for training.  With
+    ``backward`` every 3DGS render is recorded and differentiated: each
+    launches one ``project_bwd`` (train, finetune and overfit steps)."""
     n3, n2 = launches.get("composite_fwd", 0), launches.get("surfel_fwd", 0)
     prepass = dict(project=n3, surfel_setup=n2, depth_rank=n3 + n2,
-                   tile_keys=n3 + n2, tile_ranges=n3 + n2)
+                   tile_keys=n3 + n2, tile_ranges=n3 + n2,
+                   project_bwd=n3 if backward else 0)
     return {**dict.fromkeys(kernels.launch_counts, 0), **prepass, **launches}
 
 
@@ -2115,6 +2120,9 @@ def prepass_bytes(n: int, sh_coeffs: int, max_tiles: int) -> dict:
     at 3.35 TB/s; the work is a few dozen operations a byte short of the
     f32 peak."""
     return {"project": n * (12 + 12 * sh_coeffs + 4 + 12 + 16 + 45),
+            # the inputs but the opacity, an offset, five cotangents and
+            # six gradients
+            "project_bwd": n * (140 + 24 * sh_coeffs),
             "depth_rank": n * 16,
             "tile_keys": n * (33 + 4 * max_tiles),
             "tile_ranges": n * max_tiles * 25}
@@ -2140,6 +2148,67 @@ def timed_views(fn, reps: int = 20) -> tuple:
     return statistics.median(dev_ms), statistics.median(host_ms)
 
 
+def project_bwd_timing(view, deg: int, bytes_bound: float) -> dict:
+    """The projection's backward of one view, ``view`` ``rasterize``'s
+    inputs with a zero screen offset as the train step passes none: the
+    ``project_bwd`` kernel against the recompute it replaced
+    (``project_vjp_recompute``) on the same inputs and seeded cotangents,
+    every gradient asked; the largest difference of each gradient over its
+    largest value where the kernel's forward and the chain agree on
+    validity, failing above ``PROJECT_RTOL``; both timed in turns (kernel,
+    recompute, recompute, kernel; median device ms of 20 calls by CUDA
+    events, host ms of their enqueue) and the kernel's mean device ms (the
+    profiler, 10 calls) beside its byte bound."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from generativedensification_torch.splat import projection
+
+    with torch.inference_mode(False):
+        # the recompute records autograd: copies of the view's tensors, which
+        # the serving phases made under inference mode
+        means, shs, opa, scales, quats = (t.clone() for t in view[:5])
+        cam = dataclasses.replace(view[5], **{
+            f.name: getattr(view[5], f.name).clone() for f in dataclasses.fields(view[5])
+            if isinstance(getattr(view[5], f.name), torch.Tensor)})
+        n = means.shape[0]
+        inputs = (means, shs, opa, scales, quats, torch.zeros((n, 2), device=means.device))
+        g = torch.Generator(device=means.device).manual_seed(0)
+        cots = [torch.randn((n, *shape), generator=g, device=means.device)
+                for shape in ((2,), (), (3,), (3,), ())]
+        need = (True,) * 6
+        kern = lambda: projection._project_vjp_kernel(cam, deg, inputs, cots, need)
+        recompute = lambda: projection.project_vjp_recompute(cam, deg, inputs, cots, need)
+        with torch.no_grad():
+            valid = projection._project_kernel(cam, deg, *inputs)[6]
+            ref_valid = projection._project_plain(cam, deg, *inputs)[0].valid
+        same = valid == ref_valid
+        rel = {}
+        for name, a, b in zip(("means3d", "shs", "opacity", "scales", "rotations",
+                               "screen_offset"), kern(), recompute()):
+            rel[name] = float((a - b)[same].abs().max()) / max(float(b.abs().max()), 1e-30)
+            if not rel[name] <= PROJECT_RTOL:
+                fail(f"project_bwd: the {name} gradient differs from the recompute's by "
+                     f"{rel[name]:.3g} of its largest value (limit {PROJECT_RTOL})")
+        runs = {"kernel": [], "recompute": []}
+        for which in ("kernel", "recompute", "recompute", "kernel"):
+            runs[which].append(timed_views(kern if which == "kernel" else recompute))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                kern()
+            torch.cuda.synchronize()
+    kernel_ms = None
+    for ev in prof.key_averages():
+        if "project_bwd_kernel" in ev.key and ev.device_time_total > 0:
+            kernel_ms = ev.device_time_total / ev.count / 1e3
+    return dict(rel=rel, flips=int((~same).sum()), kernel_ms=kernel_ms,
+                bound_ms=bytes_bound / 3.35e12 * 1e3,
+                device_ms=statistics.median(r[0] for r in runs["kernel"]),
+                host_ms=statistics.median(r[1] for r in runs["kernel"]),
+                recompute_device_ms=statistics.median(r[0] for r in runs["recompute"]),
+                recompute_host_ms=statistics.median(r[1] for r in runs["recompute"]))
+
+
 def prepass_phase(views: dict, tile_size: int, max_tiles: int,
                   max_per_tile: int) -> dict:
     """The renders' pre-pass (``csrc/prepass.cu``) at the serving shapes,
@@ -2154,7 +2223,8 @@ def prepass_phase(views: dict, tile_size: int, max_tiles: int,
     differing bit; one view's pre-pass timed both ways in turns (kernels,
     plain, plain, kernels; median device ms of 20 views by CUDA events, host
     ms of their enqueue) and each kernel's device ms (the profiler); the
-    launches of one view."""
+    launches of one view; at the model's views the projection's backward
+    (``project_bwd_timing``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2253,6 +2323,10 @@ def prepass_phase(views: dict, tile_size: int, max_tiles: int,
                    plain_host_ms=statistics.median(r[1] for r in runs["plain"]),
                    kernel_ms=per_kernel, sorts_ms=sorts, bound_ms=bound,
                    pairs=int(counts.sum()), overflow=int(total))
+        if label.startswith("model_"):
+            rec["backward"] = project_bwd_timing(
+                (means, shs, opa, scales, quats, cam), deg,
+                prepass_bytes(n, shs.shape[1], max_tiles)["project_bwd"])
         print(f"[prepass {label}] {json.dumps(rec)}")
         recs[label] = rec
     return recs
@@ -2398,9 +2472,10 @@ def main() -> int:
     from generativedensification_torch.tools import kernel_break, scenes, timing
     from generativedensification_torch.utils.device import resolve_device
 
-    def expect(**launches):
-        """Launches per forward: the given kernels, every other one 0."""
-        return expect_launches(kernels, **launches)
+    def expect(backward=False, **launches):
+        """Launches per forward (with ``backward``, per micro-step): the
+        given kernels, every other one 0."""
+        return expect_launches(kernels, backward, **launches)
 
     # -- 1. the card
     card = timing.card()
@@ -2603,7 +2678,7 @@ def main() -> int:
     # full) per micro-step; then GD_APOS_MODE and kernels #5 / #6
     n_bwd = 2 * V_TOTAL + N_VIEWS
     train = {
-        "3dgs": train_phase("3dgs", batch, expect(composite_fwd=2 * V_TOTAL,
+        "3dgs": train_phase("3dgs", batch, expect(True, composite_fwd=2 * V_TOTAL,
                                                   composite_bwd=n_bwd)),
         "2dgs": train_phase("2dgs", batch, expect(surfel_fwd=2 * V_TOTAL,
                                                   surfel_bwd=n_bwd, surfel_setup=0)),
@@ -2612,7 +2687,7 @@ def main() -> int:
     # -- 8b. the bf16 compute policy beside f32 (same weights and batch, in
     # turns), and one 2DGS bf16 micro-step
     bf16 = bf16_phase(batch, expect(composite_fwd=2 * V_TOTAL, composite_bwd=N_VIEWS),
-                      expect(composite_fwd=2 * V_TOTAL, composite_bwd=n_bwd),
+                      expect(True, composite_fwd=2 * V_TOTAL, composite_bwd=n_bwd),
                       expect(surfel_fwd=2 * V_TOTAL, surfel_bwd=n_bwd, surfel_setup=0))
 
     # -- 8c. the train CLI at its config defaults (bf16, B=3), checkpoint
@@ -2647,7 +2722,7 @@ def main() -> int:
         "serving": residual_serving_phase(
             batch, expect(composite_fwd=2 * V_TOTAL, composite_bwd=N_VIEWS), n_fine),
         "train": residual_train_phase(
-            batch, expect(composite_fwd=2 * V_TOTAL, composite_bwd=n_bwd)),
+            batch, expect(True, composite_fwd=2 * V_TOTAL, composite_bwd=n_bwd)),
         "eval": eval_phase(residual=True),
     }
     print(f"[residual] serving + train + eval phases in "

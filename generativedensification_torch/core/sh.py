@@ -88,14 +88,9 @@ _C3 = (
 )
 
 
-def eval_sh_color(shs: torch.Tensor, dirs: torch.Tensor, degree: int) -> torch.Tensor:
-    """3DGS SH→RGB: ``max(result + 0.5, 0)``.
-
-    shs: (..., (degree+1)**2, 3); dirs: (..., 3) unnormalized view
-    directions (mean - campos).  Returns (..., 3).
-    """
-    d = dirs / (torch.linalg.norm(dirs, dim=-1, keepdim=True) + 1e-12)
-    x, y, z = d[..., 0], d[..., 1], d[..., 2]
+def sh_basis(x, y, z, degree: int) -> list:
+    """``eval_sh_color``'s basis functions past the constant one at the unit
+    direction (x, y, z): (degree+1)**2 - 1 tensors."""
     basis = []
     if degree >= 1:
         basis += [-_C1 * y, _C1 * z, -_C1 * x]
@@ -119,6 +114,17 @@ def eval_sh_color(shs: torch.Tensor, dirs: torch.Tensor, degree: int) -> torch.T
             _C3[5] * z * (xx - yy),
             _C3[6] * x * (xx - 3.0 * yy),
         ]
+    return basis
+
+
+def eval_sh_color(shs: torch.Tensor, dirs: torch.Tensor, degree: int) -> torch.Tensor:
+    """3DGS SH→RGB: ``max(result + 0.5, 0)``.
+
+    shs: (..., (degree+1)**2, 3); dirs: (..., 3) unnormalized view
+    directions (mean - campos).  Returns (..., 3).
+    """
+    d = dirs / (torch.linalg.norm(dirs, dim=-1, keepdim=True) + 1e-12)
+    basis = sh_basis(d[..., 0], d[..., 1], d[..., 2], degree)
     channels = []
     for c in range(3):
         acc = _C0 * shs[..., 0, c]

@@ -1,7 +1,7 @@
 // The renders' pre-pass for Hopper (sm_90a), plain C interface for ctypes:
 // the 3DGS projection (splat/projection.py), the 2DGS surfel set-up
 // (splat/surfel.py) and the tile binning that the 3DGS and 2DGS renderers
-// share (splat/binning.py), in five kernels.
+// share (splat/binning.py), in five kernels, and the projection's backward.
 //
 // Replaces no TPU kernel: the JAX package leaves project_gaussians,
 // _surfel_setup and bin_gaussians to XLA, which fuses each op chain into a
@@ -12,12 +12,21 @@
 // count: a view's pre-pass is gd_project, the depth sort key (one
 // elementwise op), the library's stable depth sort, gd_depth_rank,
 // gd_tile_keys, the library's stable key sort and gd_tile_ranges; a 2DGS
-// view's begins with gd_surfel_setup in gd_project's place.
+// view's begins with gd_surfel_setup in gd_project's place.  A 3DGS view
+// that autograd records runs gd_project_bwd in its backward, where eager
+// PyTorch recomputed the chain and ran autograd through it (~960 ops).
 //
 //   gd_project      one thread per Gaussian: the quaternion normalisation,
 //                   the view and clip transforms, the EWA 2D covariance and
 //                   its conic, the screen radius and the culling, degree 0-3
 //                   SH colour and the opacity folded with validity.
+//   gd_project_bwd  one thread per Gaussian: the vector-Jacobian product of
+//                   gd_project's differentiable outputs (xy, depth, conic,
+//                   colour, opacity_eff) for the gradients of the means, SH,
+//                   opacity, scales, quaternions and screen offset, from the
+//                   forward's values recomputed in registers by the same
+//                   device functions, so every branch (the culls, the FOV
+//                   clamp, the colour clamp, the w guard) is the forward's.
 //   gd_surfel_setup one thread per surfel: the rotation's columns, the
 //                   view-space centre, tangent axes and normal (flipped
 //                   toward the camera), the homogeneous map M and its ray
@@ -43,8 +52,9 @@
 //
 // Bound on an H100: bytes, and at serving sizes not even those.  The
 // projection reads ~80 B and writes ~50 B a Gaussian (45 MB at 331,744
-// Gaussians, ~14 us at 3.35 TB/s); the binning's elementwise passes move
-// ~60 B a Gaussian.  What the design does about the launch bound: the
+// Gaussians, ~14 us at 3.35 TB/s); its backward reads the inputs and five
+// cotangents and writes six gradients, ~236 B a Gaussian at SH degree 1 (78
+// MB, ~23 us); the binning's elementwise passes move ~60 B a Gaussian.  What the design does about the launch bound: the
 // camera is read from its device tensors through strides (no host copy, no
 // sync), the counters live on the card, and no wrapper reads a value back.
 //
@@ -60,6 +70,7 @@
 // gemm3 / sum3 / cross_term / norm2): bit for bit at the serving shapes,
 // and within rounding wherever the library picks another order.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -154,16 +165,20 @@ constexpr float C3_0 = -0.5900435899266435, C3_1 = 2.890611442640554,
                 C3_4 = -0.4570457994644658, C3_5 = 1.445305721320277,
                 C3_6 = -0.5900435899266435;
 
-// core/sh.py::eval_sh_color at degree DEG of one row of SH coefficients
-// `sh` ((DEG + 1)², 3) in the view direction (dx, dy, dz) = mean - centre,
-// into color[0..2]
+// core/sh.py::eval_sh_color's view direction (dx, dy, dz) = mean - centre,
+// normalised by its norm + 1e-12: the norm in nrm, the unit vector in X, Y, Z
+__device__ __forceinline__ void sh_dir(float dx, float dy, float dz, float& nrm, float& X,
+                                       float& Y, float& Z) {
+  nrm = norm3(dx, dy, dz);
+  const float dn = add(nrm, 1e-12f);
+  X = dvd(dx, dn);
+  Y = dvd(dy, dn);
+  Z = dvd(dz, dn);
+}
+
+// the (DEG + 1)² - 1 basis functions past the constant one, at (X, Y, Z)
 template <int DEG>
-__device__ __forceinline__ void sh_color(const float* sh, float dx, float dy, float dz,
-                                         float* color) {
-  const float dn = add(norm3(dx, dy, dz), 1e-12f);
-  const float X = dvd(dx, dn), Y = dvd(dy, dn), Z = dvd(dz, dn);
-  constexpr int NB = (DEG + 1) * (DEG + 1) - 1;
-  float basis[NB > 0 ? NB : 1];
+__device__ __forceinline__ void sh_basis(float X, float Y, float Z, float* basis) {
   if constexpr (DEG >= 1) {
     basis[0] = mul(-C1, Y);
     basis[1] = mul(C1, Z);
@@ -187,6 +202,22 @@ __device__ __forceinline__ void sh_color(const float* sh, float dx, float dy, fl
       basis[14] = mul(mul(C3_6, X), sub(xx, mul(3.f, yy)));
     }
   }
+}
+
+template <int DEG>
+constexpr int SH_REST = (DEG + 1) * (DEG + 1) - 1;
+
+// core/sh.py::eval_sh_color at degree DEG of one row of SH coefficients
+// `sh` ((DEG + 1)², 3) in the view direction (dx, dy, dz) = mean - centre,
+// into color[0..2]
+template <int DEG>
+__device__ __forceinline__ void sh_color(const float* sh, float dx, float dy, float dz,
+                                         float* color) {
+  float nrm, X, Y, Z;
+  sh_dir(dx, dy, dz, nrm, X, Y, Z);
+  constexpr int NB = SH_REST<DEG>;
+  float basis[NB > 0 ? NB : 1];
+  sh_basis<DEG>(X, Y, Z, basis);
   for (int c = 0; c < 3; ++c) {
     float acc = mul(C0, sh[c]);
     for (int k = 0; k < NB; ++k) acc = add(acc, mul(basis[k], sh[3 * (k + 1) + c]));
@@ -194,45 +225,62 @@ __device__ __forceinline__ void sh_color(const float* sh, float dx, float dy, fl
   }
 }
 
-template <int DEG>
-__global__ void __launch_bounds__(THREADS) project_kernel(ProjectArgs a) {
-  // the camera, read once per block: W (4x4), F (4x4), centre, tan x / y
-  __shared__ float cam[37];
+// The camera of gd_project / gd_project_bwd in shared memory: W (4x4) at 0,
+// F (4x4) at 16, the centre at 32, tan x / y at 35 / 36
+template <typename A>
+__device__ __forceinline__ void load_projection_camera(const A& a, float* cam) {
   const int t = threadIdx.x;
   if (t < 16) cam[t] = a.wvt[(t >> 2) * a.wvt_r + (t & 3) * a.wvt_c];
   else if (t < 32) cam[t] = a.fpt[((t - 16) >> 2) * a.fpt_r + ((t - 16) & 3) * a.fpt_c];
   else if (t < 35) cam[t] = a.center[(t - 32) * a.center_s];
   else if (t == 35) cam[t] = *a.tanx;
   else if (t == 36) cam[t] = *a.tany;
-  __syncthreads();
-  const int i = blockIdx.x * THREADS + t;
-  if (i >= a.n) return;
+}
+
+// One Gaussian's projection, every value the forward writes or the backward
+// differentiates, as the plain chain rounds it
+struct ProjectValues {
+  float v0, v1, z;            // view space
+  float c0, c1, w, safe_w;    // clip space: x, y, w and w kept off zero
+  float x, y;                 // the screen mean, offset added
+  float nq, qn, qh[4];        // |q|, |q| + 1e-8, the normalised quaternion
+  float r[3][3], m[3][3];     // R and M = R diag(s)
+  float sig[6];               // Σ = M Mᵀ: s00, s01, s02, s11, s12, s22
+  float rx, ry, lim_x, lim_y; // x / z, y / z and their FOV clamp
+  float txz, tyz, tx, ty;     // the clamped ratios and their products with z
+  float inv_z, focal_x, focal_y, fxz, fyz, gx, gy;
+  float t0[3], t1[3];         // the rows of J W
+  float ca, cb, cc, det, inv_det, rad;
+  bool valid0, valid;         // z > 0.2 and det > 0; and on screen, radius > 0
+};
+
+__device__ __forceinline__ void project_values(const float* cam, float fw, float fh,
+                                               float px, float py, float pz, const float* q,
+                                               const float* s, bool has_offset, float ox,
+                                               float oy, ProjectValues& v) {
   const float* W = cam;
   const float* F = cam + 16;
   const float tanx = cam[35], tany = cam[36];
-  const float fw = static_cast<float>(a.width), fh = static_cast<float>(a.height);
-
-  const float px = a.means[3 * i], py = a.means[3 * i + 1], pz = a.means[3 * i + 2];
-  const float v0 = dot4(px, py, pz, W[0], W[4], W[8], W[12]);
-  const float v1 = dot4(px, py, pz, W[1], W[5], W[9], W[13]);
-  const float z = dot4(px, py, pz, W[2], W[6], W[10], W[14]);
-  const float c0 = dot4(px, py, pz, F[0], F[4], F[8], F[12]);
-  const float c1 = dot4(px, py, pz, F[1], F[5], F[9], F[13]);
-  const float w = dot4(px, py, pz, F[3], F[7], F[11], F[15]);
-  const float sgn = static_cast<float>((w > 0.f) - (w < 0.f));
-  const float safe_w = fabsf(w) < 1e-7f ? add(mul(sgn, 1e-7f), 1e-12f) : w;
-  float x = mul(sub(mul(add(dvd(c0, safe_w), 1.f), fw), 1.f), 0.5f);
-  float y = mul(sub(mul(add(dvd(c1, safe_w), 1.f), fh), 1.f), 0.5f);
-  if (a.offset != nullptr) {
-    x = add(x, a.offset[2 * i]);
-    y = add(y, a.offset[2 * i + 1]);
+  v.v0 = dot4(px, py, pz, W[0], W[4], W[8], W[12]);
+  v.v1 = dot4(px, py, pz, W[1], W[5], W[9], W[13]);
+  v.z = dot4(px, py, pz, W[2], W[6], W[10], W[14]);
+  v.c0 = dot4(px, py, pz, F[0], F[4], F[8], F[12]);
+  v.c1 = dot4(px, py, pz, F[1], F[5], F[9], F[13]);
+  v.w = dot4(px, py, pz, F[3], F[7], F[11], F[15]);
+  const float sgn = static_cast<float>((v.w > 0.f) - (v.w < 0.f));
+  v.safe_w = fabsf(v.w) < 1e-7f ? add(mul(sgn, 1e-7f), 1e-12f) : v.w;
+  v.x = mul(sub(mul(add(dvd(v.c0, v.safe_w), 1.f), fw), 1.f), 0.5f);
+  v.y = mul(sub(mul(add(dvd(v.c1, v.safe_w), 1.f), fh), 1.f), 0.5f);
+  if (has_offset) {
+    v.x = add(v.x, ox);
+    v.y = add(v.y, oy);
   }
 
   // Σ = R diag(s²) Rᵀ from the normalised quaternion
-  const float* q = a.rot + 4 * i;
-  const float qn = add(norm4(q[0], q[1], q[2], q[3]), 1e-8f);
-  const float qw = dvd(q[0], qn), qx = dvd(q[1], qn), qy = dvd(q[2], qn),
-              qz = dvd(q[3], qn);
+  v.nq = norm4(q[0], q[1], q[2], q[3]);
+  v.qn = add(v.nq, 1e-8f);
+  for (int k = 0; k < 4; ++k) v.qh[k] = dvd(q[k], v.qn);
+  const float qw = v.qh[0], qx = v.qh[1], qy = v.qh[2], qz = v.qh[3];
   const float r[3][3] = {
       {sub(1.f, mul(2.f, add(mul(qy, qy), mul(qz, qz)))),
        mul(2.f, sub(mul(qx, qy), mul(qw, qz))), mul(2.f, add(mul(qx, qz), mul(qw, qy)))},
@@ -240,64 +288,377 @@ __global__ void __launch_bounds__(THREADS) project_kernel(ProjectArgs a) {
        sub(1.f, mul(2.f, add(mul(qx, qx), mul(qz, qz)))), mul(2.f, sub(mul(qy, qz), mul(qw, qx)))},
       {mul(2.f, sub(mul(qx, qz), mul(qw, qy))), mul(2.f, add(mul(qy, qz), mul(qw, qx))),
        sub(1.f, mul(2.f, add(mul(qx, qx), mul(qy, qy))))}};
-  const float s[3] = {a.scales[3 * i], a.scales[3 * i + 1], a.scales[3 * i + 2]};
-  float m[3][3];
   for (int j = 0; j < 3; ++j)
-    for (int k = 0; k < 3; ++k) m[j][k] = mul(r[j][k], s[k]);
-  auto dot3 = [](const float* u, const float* v) {
-    return add(add(mul(u[0], v[0]), mul(u[1], v[1])), mul(u[2], v[2]));
+    for (int k = 0; k < 3; ++k) {
+      v.r[j][k] = r[j][k];
+      v.m[j][k] = mul(r[j][k], s[k]);
+    }
+  auto dot3 = [](const float* u, const float* w) {
+    return add(add(mul(u[0], w[0]), mul(u[1], w[1])), mul(u[2], w[2]));
   };
-  const float s00 = dot3(m[0], m[0]), s01 = dot3(m[0], m[1]), s02 = dot3(m[0], m[2]),
-              s11 = dot3(m[1], m[1]), s12 = dot3(m[1], m[2]), s22 = dot3(m[2], m[2]);
+  v.sig[0] = dot3(v.m[0], v.m[0]);
+  v.sig[1] = dot3(v.m[0], v.m[1]);
+  v.sig[2] = dot3(v.m[0], v.m[2]);
+  v.sig[3] = dot3(v.m[1], v.m[1]);
+  v.sig[4] = dot3(v.m[1], v.m[2]);
+  v.sig[5] = dot3(v.m[2], v.m[2]);
+  const float s00 = v.sig[0], s01 = v.sig[1], s02 = v.sig[2], s11 = v.sig[3],
+              s12 = v.sig[4], s22 = v.sig[5];
 
   // EWA: Σ₂ = J W Σ Wᵀ Jᵀ + 0.3 I, with W = world_view_transform[:3, :3]ᵀ
-  const float lim_x = mul(1.3f, tanx), lim_y = mul(1.3f, tany);
-  const float tx = mul(clamp2(dvd(v0, z), -lim_x, lim_x), z);
-  const float ty = mul(clamp2(dvd(v1, z), -lim_y, lim_y), z);
-  const float inv_z = dvd(1.f, z);
-  const float focal_x = mul(dvd(1.f, mul(2.f, tanx)), fw);
-  const float focal_y = mul(dvd(1.f, mul(2.f, tany)), fh);
-  const float fxz = mul(focal_x, inv_z), fyz = mul(focal_y, inv_z);
-  const float gx = mul(mul(mul(focal_x, tx), inv_z), inv_z);
-  const float gy = mul(mul(mul(focal_y, ty), inv_z), inv_z);
-  float t0[3], t1[3];
+  v.lim_x = mul(1.3f, tanx);
+  v.lim_y = mul(1.3f, tany);
+  v.rx = dvd(v.v0, v.z);
+  v.ry = dvd(v.v1, v.z);
+  v.txz = clamp2(v.rx, -v.lim_x, v.lim_x);
+  v.tyz = clamp2(v.ry, -v.lim_y, v.lim_y);
+  v.tx = mul(v.txz, v.z);
+  v.ty = mul(v.tyz, v.z);
+  v.inv_z = dvd(1.f, v.z);
+  v.focal_x = mul(dvd(1.f, mul(2.f, tanx)), fw);
+  v.focal_y = mul(dvd(1.f, mul(2.f, tany)), fh);
+  v.fxz = mul(v.focal_x, v.inv_z);
+  v.fyz = mul(v.focal_y, v.inv_z);
+  v.gx = mul(mul(mul(v.focal_x, v.tx), v.inv_z), v.inv_z);
+  v.gy = mul(mul(mul(v.focal_y, v.ty), v.inv_z), v.inv_z);
   for (int k = 0; k < 3; ++k) {
-    t0[k] = sub(mul(fxz, W[4 * k]), mul(gx, W[4 * k + 2]));
-    t1[k] = sub(mul(fyz, W[4 * k + 1]), mul(gy, W[4 * k + 2]));
+    v.t0[k] = sub(mul(v.fxz, W[4 * k]), mul(v.gx, W[4 * k + 2]));
+    v.t1[k] = sub(mul(v.fyz, W[4 * k + 1]), mul(v.gy, W[4 * k + 2]));
   }
-  auto quad = [&](const float* u, const float* v) {
-    float acc = add(mul(mul(u[0], v[0]), s00), mul(mul(u[1], v[1]), s11));
-    acc = add(acc, mul(mul(u[2], v[2]), s22));
-    acc = add(acc, mul(add(mul(u[0], v[1]), mul(u[1], v[0])), s01));
-    acc = add(acc, mul(add(mul(u[0], v[2]), mul(u[2], v[0])), s02));
-    return add(acc, mul(add(mul(u[1], v[2]), mul(u[2], v[1])), s12));
+  auto quad = [&](const float* u, const float* w) {
+    float acc = add(mul(mul(u[0], w[0]), s00), mul(mul(u[1], w[1]), s11));
+    acc = add(acc, mul(mul(u[2], w[2]), s22));
+    acc = add(acc, mul(add(mul(u[0], w[1]), mul(u[1], w[0])), s01));
+    acc = add(acc, mul(add(mul(u[0], w[2]), mul(u[2], w[0])), s02));
+    return add(acc, mul(add(mul(u[1], w[2]), mul(u[2], w[1])), s12));
   };
-  const float ca = add(quad(t0, t0), 0.3f);
-  const float cb = quad(t0, t1);
-  const float cc = add(quad(t1, t1), 0.3f);
+  v.ca = add(quad(v.t0, v.t0), 0.3f);
+  v.cb = quad(v.t0, v.t1);
+  v.cc = add(quad(v.t1, v.t1), 0.3f);
 
-  const float det = sub(mul(ca, cc), mul(cb, cb));
-  bool valid = (z > 0.2f) && (det > 0.f);
-  const float inv_det = dvd(1.f, valid ? det : 1.f);
-  const float mid = mul(0.5f, add(ca, cc));
-  const float lam1 = add(mid, sqrtf(clamp_min(sub(mul(mid, mid), det), 0.1f)));
-  const float rad = ceilf(mul(3.f, sqrtf(clamp_min(lam1, 0.f))));
-  valid = valid && (add(x, rad) > 0.f) && (sub(x, rad) < fw) && (add(y, rad) > 0.f) &&
-          (sub(y, rad) < fh) && (rad > 0.f);
+  v.det = sub(mul(v.ca, v.cc), mul(v.cb, v.cb));
+  v.valid0 = (v.z > 0.2f) && (v.det > 0.f);
+  v.inv_det = dvd(1.f, v.valid0 ? v.det : 1.f);
+  const float mid = mul(0.5f, add(v.ca, v.cc));
+  const float lam1 = add(mid, sqrtf(clamp_min(sub(mul(mid, mid), v.det), 0.1f)));
+  v.rad = ceilf(mul(3.f, sqrtf(clamp_min(lam1, 0.f))));
+  v.valid = v.valid0 && (add(v.x, v.rad) > 0.f) && (sub(v.x, v.rad) < fw) &&
+            (add(v.y, v.rad) > 0.f) && (sub(v.y, v.rad) < fh) && (v.rad > 0.f);
+}
+
+template <int DEG>
+__global__ void __launch_bounds__(THREADS) project_kernel(ProjectArgs a) {
+  // the camera, read once per block
+  __shared__ float cam[37];
+  load_projection_camera(a, cam);
+  __syncthreads();
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  if (i >= a.n) return;
+  const float fw = static_cast<float>(a.width), fh = static_cast<float>(a.height);
+
+  const float px = a.means[3 * i], py = a.means[3 * i + 1], pz = a.means[3 * i + 2];
+  const float s[3] = {a.scales[3 * i], a.scales[3 * i + 1], a.scales[3 * i + 2]};
+  const bool has_offset = a.offset != nullptr;
+  ProjectValues v;
+  project_values(cam, fw, fh, px, py, pz, a.rot + 4 * i, s, has_offset,
+                 has_offset ? a.offset[2 * i] : 0.f, has_offset ? a.offset[2 * i + 1] : 0.f, v);
 
   // view-dependent colour, SH degree DEG
   sh_color<DEG>(a.shs + static_cast<int64_t>(i) * a.sh_stride, sub(px, cam[32]),
                 sub(py, cam[33]), sub(pz, cam[34]), a.color + 3 * i);
 
-  a.xy[2 * i] = x;
-  a.xy[2 * i + 1] = y;
-  a.depth[i] = z;
-  a.conic[3 * i] = mul(cc, inv_det);
-  a.conic[3 * i + 1] = mul(-cb, inv_det);
-  a.conic[3 * i + 2] = mul(ca, inv_det);
-  a.opa_eff[i] = valid ? a.opacity[i] : 0.f;
-  a.radius[i] = valid ? rad : 0.f;
-  a.valid[i] = valid;
+  a.xy[2 * i] = v.x;
+  a.xy[2 * i + 1] = v.y;
+  a.depth[i] = v.z;
+  a.conic[3 * i] = mul(v.cc, v.inv_det);
+  a.conic[3 * i + 1] = mul(-v.cb, v.inv_det);
+  a.conic[3 * i + 2] = mul(v.ca, v.inv_det);
+  a.opa_eff[i] = v.valid ? a.opacity[i] : 0.f;
+  a.radius[i] = v.valid ? v.rad : 0.f;
+  a.valid[i] = v.valid;
+}
+
+// ------------------------------------------------------- project backward
+
+struct ProjectBwdArgs {
+  // the forward's inputs in their stored dtype (f32, or bf16 where bit k of
+  // bf16 is set: 0 means, 1 shs, 2 opacity, 3 scales, 4 rot, 5 offset), rows
+  // *_s elements apart, each row packed; offset may be null
+  const void* means;      // (N, 3)
+  const void* shs;        // (N, K, 3)
+  const void* scales;     // (N, 3)
+  const void* rot;        // (N, 4)
+  const void* offset;     // (N, 2)
+  // the cotangents of xy (N, 2), depth (N,), conic (N, 3), color (N, 3) and
+  // opacity_eff (N,), f32, packed; null where autograd gave none (zero)
+  const float* g_xy;
+  const float* g_depth;
+  const float* g_conic;
+  const float* g_color;
+  const float* g_opa;
+  // the gradients, packed, each in its input's dtype; null where not asked
+  void* d_means;          // (N, 3)
+  void* d_shs;            // (N, K, 3): zero past the degree's coefficients
+  void* d_opa;            // (N,)
+  void* d_scales;         // (N, 3)
+  void* d_rot;            // (N, 4)
+  void* d_off;            // (N, 2)
+  const float* wvt;
+  const float* fpt;
+  const float* center;
+  const float* tanx;
+  const float* tany;
+  int means_s, shs_s, sh_k, scales_s, rot_s, off_s, bf16;
+  int wvt_r, wvt_c, fpt_r, fpt_c, center_s, n, width, height;
+};
+
+__device__ __forceinline__ float load_as_f32(const void* p, bool bf16, int64_t i) {
+  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
+              : static_cast<const float*>(p)[i];
+}
+__device__ __forceinline__ void store_as(void* p, bool bf16, int64_t i, float v) {
+  if (bf16) static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v);
+  else static_cast<float*>(p)[i] = v;
+}
+__device__ __forceinline__ float cotangent(const float* g, int64_t i) {
+  return g != nullptr ? g[i] : 0.f;
+}
+
+// d(X, Y, Z) of sum_k db[k] * basis[k]
+template <int DEG>
+__device__ __forceinline__ void sh_basis_vjp(float X, float Y, float Z, const float* db,
+                                             float& dX, float& dY, float& dZ) {
+  dX = dY = dZ = 0.f;
+  if constexpr (DEG >= 1) {
+    dY -= C1 * db[0];
+    dZ += C1 * db[1];
+    dX -= C1 * db[2];
+  }
+  if constexpr (DEG >= 2) {
+    dX += C2_0 * Y * db[3];
+    dY += C2_0 * X * db[3];
+    dY += C2_1 * Z * db[4];
+    dZ += C2_1 * Y * db[4];
+    dX -= 2.f * C2_2 * X * db[5];
+    dY -= 2.f * C2_2 * Y * db[5];
+    dZ += 4.f * C2_2 * Z * db[5];
+    dX += C2_3 * Z * db[6];
+    dZ += C2_3 * X * db[6];
+    dX += 2.f * C2_4 * X * db[7];
+    dY -= 2.f * C2_4 * Y * db[7];
+  }
+  if constexpr (DEG >= 3) {
+    const float xx = X * X, yy = Y * Y, zz = Z * Z;
+    dX += C3_0 * 6.f * X * Y * db[8];
+    dY += C3_0 * (3.f * xx - 3.f * yy) * db[8];
+    dX += C3_1 * Y * Z * db[9];
+    dY += C3_1 * X * Z * db[9];
+    dZ += C3_1 * X * Y * db[9];
+    dX -= C3_2 * 2.f * X * Y * db[10];
+    dY += C3_2 * (4.f * zz - xx - 3.f * yy) * db[10];
+    dZ += C3_2 * 8.f * Y * Z * db[10];
+    dX -= C3_3 * 6.f * X * Z * db[11];
+    dY -= C3_3 * 6.f * Y * Z * db[11];
+    dZ += C3_3 * (6.f * zz - 3.f * xx - 3.f * yy) * db[11];
+    dX += C3_4 * (4.f * zz - 3.f * xx - yy) * db[12];
+    dY -= C3_4 * 2.f * X * Y * db[12];
+    dZ += C3_4 * 8.f * X * Z * db[12];
+    dX += C3_5 * 2.f * X * Z * db[13];
+    dY -= C3_5 * 2.f * Y * Z * db[13];
+    dZ += C3_5 * (xx - yy) * db[13];
+    dX += C3_6 * (3.f * xx - 3.f * yy) * db[14];
+    dY -= C3_6 * 6.f * X * Y * db[14];
+  }
+}
+
+// The backward follows autograd's rule at every branch of the plain chain:
+// torch.clamp passes the gradient where its input lies within the bounds,
+// ends included (the FOV clamp, the colour's max(· + 0.5, 0)); torch.where
+// routes it to the chosen branch (safe_w, 1 / where(valid0, det, 1),
+// opacity_eff); a norm's gradient is 0 at a zero vector; the radius (a
+// ceil) passes none.  Its own sums are plain f32 arithmetic.
+template <int DEG>
+__global__ void __launch_bounds__(THREADS) project_bwd_kernel(ProjectBwdArgs a) {
+  __shared__ float cam[37];
+  load_projection_camera(a, cam);
+  __syncthreads();
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  if (i >= a.n) return;
+  const float* W = cam;
+  const float* F = cam + 16;
+  const float fw = static_cast<float>(a.width), fh = static_cast<float>(a.height);
+  const bool bf_means = a.bf16 & 1, bf_shs = a.bf16 & 2, bf_opa = a.bf16 & 4,
+             bf_scales = a.bf16 & 8, bf_rot = a.bf16 & 16, bf_off = a.bf16 & 32;
+
+  const int64_t im = static_cast<int64_t>(i) * a.means_s;
+  const float px = load_as_f32(a.means, bf_means, im);
+  const float py = load_as_f32(a.means, bf_means, im + 1);
+  const float pz = load_as_f32(a.means, bf_means, im + 2);
+  float q[4], s[3];
+  for (int k = 0; k < 4; ++k)
+    q[k] = load_as_f32(a.rot, bf_rot, static_cast<int64_t>(i) * a.rot_s + k);
+  for (int k = 0; k < 3; ++k)
+    s[k] = load_as_f32(a.scales, bf_scales, static_cast<int64_t>(i) * a.scales_s + k);
+  const bool has_offset = a.offset != nullptr;
+  const int64_t io = static_cast<int64_t>(i) * a.off_s;
+  ProjectValues v;
+  project_values(cam, fw, fh, px, py, pz, q, s, has_offset,
+                 has_offset ? load_as_f32(a.offset, bf_off, io) : 0.f,
+                 has_offset ? load_as_f32(a.offset, bf_off, io + 1) : 0.f, v);
+
+  const float gx = cotangent(a.g_xy, 2 * i), gy = cotangent(a.g_xy, 2 * i + 1);
+  if (a.d_opa != nullptr) store_as(a.d_opa, bf_opa, i, v.valid ? cotangent(a.g_opa, i) : 0.f);
+  if (a.d_off != nullptr) {
+    store_as(a.d_off, bf_off, 2 * i, gx);
+    store_as(a.d_off, bf_off, 2 * i + 1, gy);
+  }
+  const bool want_means = a.d_means != nullptr;
+  const bool want_cov = a.d_scales != nullptr || a.d_rot != nullptr;
+  if (!want_means && !want_cov && a.d_shs == nullptr) return;
+
+  // the conic (c, -b, a) / where(valid0, det, 1)
+  const float gA = cotangent(a.g_conic, 3 * i), gB = cotangent(a.g_conic, 3 * i + 1),
+              gC = cotangent(a.g_conic, 3 * i + 2);
+  float da = gC * v.inv_det, db = -gB * v.inv_det, dc = gA * v.inv_det;
+  if (v.valid0) {
+    const float ddet = -(gA * v.cc - gB * v.cb + gC * v.ca) * v.inv_det * v.inv_det;
+    da += ddet * v.cc;
+    dc += ddet * v.ca;
+    db -= 2.f * v.cb * ddet;
+  }
+  // a = t0ᵀ Σ t0 + 0.3, b = t0ᵀ Σ t1, c = t1ᵀ Σ t1 + 0.3
+  const float* S = v.sig;
+  const float Sm[3][3] = {{S[0], S[1], S[2]}, {S[1], S[3], S[4]}, {S[2], S[4], S[5]}};
+  float dt0[3], dt1[3];
+  for (int k = 0; k < 3; ++k) {
+    float st0 = 0.f, st1 = 0.f;
+    for (int l = 0; l < 3; ++l) {
+      st0 += Sm[k][l] * v.t0[l];
+      st1 += Sm[k][l] * v.t1[l];
+    }
+    dt0[k] = 2.f * da * st0 + db * st1;
+    dt1[k] = 2.f * dc * st1 + db * st0;
+  }
+
+  float dp[3] = {0.f, 0.f, 0.f};
+  if (want_means) {
+    // t0 = fxz W[:, 0] - gx W[:, 2], t1 = fyz W[:, 1] - gy W[:, 2] (W[k][j] at 4k + j)
+    float dfxz = 0.f, dfyz = 0.f, dgx = 0.f, dgy = 0.f;
+    for (int k = 0; k < 3; ++k) {
+      dfxz += dt0[k] * W[4 * k];
+      dgx -= dt0[k] * W[4 * k + 2];
+      dfyz += dt1[k] * W[4 * k + 1];
+      dgy -= dt1[k] * W[4 * k + 2];
+    }
+    // fxz = f_x / z, gx = f_x tx / z², tx = clamp(v0 / z) z
+    const float iz = v.inv_z;
+    const float dinv = dfxz * v.focal_x + dfyz * v.focal_y +
+                       2.f * iz * (dgx * v.focal_x * v.tx + dgy * v.focal_y * v.ty);
+    const float dtx = dgx * v.focal_x * iz * iz, dty = dgy * v.focal_y * iz * iz;
+    float dz = cotangent(a.g_depth, i) - dinv * iz * iz + dtx * v.txz + dty * v.tyz;
+    float dv0 = 0.f, dv1 = 0.f;
+    if (v.rx >= -v.lim_x && v.rx <= v.lim_x) {
+      const float g = dtx * v.z;
+      dv0 = g / v.z;
+      dz -= g * v.v0 / (v.z * v.z);
+    }
+    if (v.ry >= -v.lim_y && v.ry <= v.lim_y) {
+      const float g = dty * v.z;
+      dv1 = g / v.z;
+      dz -= g * v.v1 / (v.z * v.z);
+    }
+    // xy = ((c / safe_w + 1) size - 1) / 2 + offset; safe_w is w unless |w| < 1e-7
+    const float dn0 = gx * 0.5f * fw, dn1 = gy * 0.5f * fh;
+    const float dc0 = dn0 / v.safe_w, dc1 = dn1 / v.safe_w;
+    const float dw = fabsf(v.w) < 1e-7f
+                         ? 0.f
+                         : -(dn0 * v.c0 + dn1 * v.c1) / (v.safe_w * v.safe_w);
+    // the view and clip transforms: [p, 1] @ W[:, :3], [p, 1] @ F
+    for (int k = 0; k < 3; ++k)
+      dp[k] = dv0 * W[4 * k] + dv1 * W[4 * k + 1] + dz * W[4 * k + 2] + dc0 * F[4 * k] +
+              dc1 * F[4 * k + 1] + dw * F[4 * k + 3];
+  }
+
+  if (want_cov) {
+    // Σ = M Mᵀ: dM = G M with G = 2 (da t0 t0ᵀ + dc t1 t1ᵀ) + db (t0 t1ᵀ + t1 t0ᵀ)
+    float G[3][3];
+    for (int p = 0; p < 3; ++p)
+      for (int r = 0; r < 3; ++r)
+        G[p][r] = 2.f * (da * v.t0[p] * v.t0[r] + dc * v.t1[p] * v.t1[r]) +
+                  db * (v.t0[p] * v.t1[r] + v.t0[r] * v.t1[p]);
+    float dr[3][3], ds[3] = {0.f, 0.f, 0.f};
+    for (int j = 0; j < 3; ++j)
+      for (int k = 0; k < 3; ++k) {
+        const float dm = G[j][0] * v.m[0][k] + G[j][1] * v.m[1][k] + G[j][2] * v.m[2][k];
+        dr[j][k] = dm * s[k];
+        ds[k] += dm * v.r[j][k];
+      }
+    if (a.d_scales != nullptr)
+      for (int k = 0; k < 3; ++k)
+        store_as(a.d_scales, bf_scales, 3 * static_cast<int64_t>(i) + k, ds[k]);
+    if (a.d_rot != nullptr) {
+      // R of the normalised quaternion (w, x, y, z)
+      const float w = v.qh[0], x = v.qh[1], y = v.qh[2], z = v.qh[3];
+      const float dqh[4] = {
+          2.f * (-z * dr[0][1] + y * dr[0][2] + z * dr[1][0] - x * dr[1][2] - y * dr[2][0] +
+                 x * dr[2][1]),
+          2.f * (y * dr[0][1] + z * dr[0][2] + y * dr[1][0] - 2.f * x * dr[1][1] -
+                 w * dr[1][2] + z * dr[2][0] + w * dr[2][1] - 2.f * x * dr[2][2]),
+          2.f * (-2.f * y * dr[0][0] + x * dr[0][1] + w * dr[0][2] + x * dr[1][0] +
+                 z * dr[1][2] - w * dr[2][0] + z * dr[2][1] - 2.f * y * dr[2][2]),
+          2.f * (-2.f * z * dr[0][0] - w * dr[0][1] + x * dr[0][2] + w * dr[1][0] -
+                 2.f * z * dr[1][1] + y * dr[1][2] + x * dr[2][0] + y * dr[2][1])};
+      // qh = q / (|q| + 1e-8)
+      float gq = 0.f;
+      for (int k = 0; k < 4; ++k) gq += dqh[k] * q[k];
+      const float rn = v.nq > 0.f ? gq / (v.qn * v.qn) / v.nq : 0.f;
+      for (int k = 0; k < 4; ++k)
+        store_as(a.d_rot, bf_rot, 4 * static_cast<int64_t>(i) + k, dqh[k] / v.qn - rn * q[k]);
+    }
+  }
+
+  // the colour: clamp(C0 sh0 + sum_k basis_k sh_k + 0.5, min=0) in the
+  // direction (p - centre) / (|p - centre| + 1e-12)
+  if (want_means || a.d_shs != nullptr) {
+    const float dx = sub(px, cam[32]), dy = sub(py, cam[33]), dz = sub(pz, cam[34]);
+    float nrm, X, Y, Z;
+    sh_dir(dx, dy, dz, nrm, X, Y, Z);
+    constexpr int NB = SH_REST<DEG>;
+    float basis[NB > 0 ? NB : 1], dbasis[NB > 0 ? NB : 1];
+    sh_basis<DEG>(X, Y, Z, basis);
+    const int64_t is = static_cast<int64_t>(i) * a.shs_s;
+    float gc[3];
+    for (int k = 0; k < NB; ++k) dbasis[k] = 0.f;
+    for (int c = 0; c < 3; ++c) {
+      float acc = mul(C0, load_as_f32(a.shs, bf_shs, is + c));
+      float sh[NB > 0 ? NB : 1];
+      for (int k = 0; k < NB; ++k) {
+        sh[k] = load_as_f32(a.shs, bf_shs, is + 3 * (k + 1) + c);
+        acc = add(acc, mul(basis[k], sh[k]));
+      }
+      gc[c] = add(acc, 0.5f) >= 0.f ? cotangent(a.g_color, 3 * i + c) : 0.f;
+      for (int k = 0; k < NB; ++k) dbasis[k] += gc[c] * sh[k];
+    }
+    if (a.d_shs != nullptr) {
+      const int64_t o = static_cast<int64_t>(i) * a.sh_k * 3;
+      for (int c = 0; c < 3; ++c) store_as(a.d_shs, bf_shs, o + c, C0 * gc[c]);
+      for (int k = 1; k < a.sh_k; ++k)
+        for (int c = 0; c < 3; ++c)
+          store_as(a.d_shs, bf_shs, o + 3 * k + c, k <= NB ? basis[k - 1] * gc[c] : 0.f);
+    }
+    if (want_means) {
+      float dX, dY, dZ;
+      sh_basis_vjp<DEG>(X, Y, Z, dbasis, dX, dY, dZ);
+      const float dn = add(nrm, 1e-12f);
+      const float proj = (dX * dx + dY * dy + dZ * dz) / (dn * dn);
+      const float rn = nrm > 0.f ? proj / nrm : 0.f;
+      dp[0] += dX / dn - rn * dx;
+      dp[1] += dY / dn - rn * dy;
+      dp[2] += dZ / dn - rn * dz;
+      for (int k = 0; k < 3; ++k)
+        store_as(a.d_means, bf_means, 3 * static_cast<int64_t>(i) + k, dp[k]);
+    }
+  }
 }
 
 // ------------------------------------------------------------ surfel setup
@@ -676,6 +1037,34 @@ extern "C" int gd_project(const float* means, const float* shs, int sh_stride,
     case 1: project_kernel<1><<<blocks(n), THREADS, 0, s>>>(a); break;
     case 2: project_kernel<2><<<blocks(n), THREADS, 0, s>>>(a); break;
     case 3: project_kernel<3><<<blocks(n), THREADS, 0, s>>>(a); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The gradients of gd_project's inputs from the cotangents of its
+// differentiable outputs (see ProjectBwdArgs); camera and sizes as gd_project.
+extern "C" int gd_project_bwd(const void* means, int means_s, const void* shs, int shs_s,
+                              int sh_k, const void* scales, int scales_s, const void* rot,
+                              int rot_s, const void* offset, int off_s, int bf16,
+                              const float* g_xy, const float* g_depth, const float* g_conic,
+                              const float* g_color, const float* g_opa, void* d_means,
+                              void* d_shs, void* d_opa, void* d_scales, void* d_rot,
+                              void* d_off, const float* wvt, int wvt_r, int wvt_c,
+                              const float* fpt, int fpt_r, int fpt_c, const float* center,
+                              int center_s, const float* tanx, const float* tany, int n,
+                              int width, int height, int degree, void* stream) {
+  if (n <= 0) return 0;
+  ProjectBwdArgs a{means, shs, scales, rot, offset, g_xy, g_depth, g_conic, g_color, g_opa,
+                   d_means, d_shs, d_opa, d_scales, d_rot, d_off, wvt, fpt, center, tanx,
+                   tany, means_s, shs_s, sh_k, scales_s, rot_s, off_s, bf16, wvt_r, wvt_c,
+                   fpt_r, fpt_c, center_s, n, width, height};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (degree) {
+    case 0: project_bwd_kernel<0><<<blocks(n), THREADS, 0, s>>>(a); break;
+    case 1: project_bwd_kernel<1><<<blocks(n), THREADS, 0, s>>>(a); break;
+    case 2: project_bwd_kernel<2><<<blocks(n), THREADS, 0, s>>>(a); break;
+    case 3: project_bwd_kernel<3><<<blocks(n), THREADS, 0, s>>>(a); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -11,8 +11,8 @@ Replaces ``generativedensification_tpu/splat/pallas_kernels.py``'s
 ``surfel_kernels.py`` and the stage probes of the two forwards
 (``csrc/composite_fwd_probe.cu``, ``csrc/surfel_fwd_probe.cu``) in
 ``probe_kernels.py``, and the renders' pre-pass (``csrc/prepass.cu``: the
-projection, the surfel set-up and the tile binning, which replace no TPU
-kernel) in ``projection.py``, ``surfel.py`` and ``binning.py``; all are
+projection and its backward, the surfel set-up and the tile binning, which
+replace no TPU kernel) in ``projection.py``, ``surfel.py`` and ``binning.py``; all are
 registered here, so that
 ``build()`` compiles every source and ``launch_counts`` counts every
 launch.  Each source is
@@ -85,7 +85,7 @@ launch_counts = {"composite_fwd": 0, "composite_bwd": 0, "surfel_fwd": 0,
                  "surfel_bwd": 0, "reduce_slots": 0, "transpose_rows": 0,
                  "composite_fwd_probe": 0, "surfel_fwd_probe": 0, "project": 0,
                  "surfel_setup": 0, "depth_rank": 0, "tile_keys": 0,
-                 "tile_ranges": 0}
+                 "tile_ranges": 0, "project_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -125,6 +125,8 @@ _libraries = {
     "prepass": _Library("prepass", {
         "project": [_P, _P, _I] + [_P] * 5 + [_I] * 2 + [_P] + [_I] * 2 + [_P, _I]
                    + [_P] * 2 + [_I] * 4 + [_P] * 8,
+        "project_bwd": [_P, _I, _P, _I, _I, _P, _I, _P, _I, _P, _I, _I] + [_P] * 11
+                       + [_P, _I, _I, _P, _I, _I, _P, _I, _P, _P] + [_I] * 4 + [_P],
         "surfel_setup": [_P, _P, _I] + [_P] * 3 + [_I, _P, _I, _I, _P, _I, _P, _P]
                         + [_I] * 4 + [_F] + [_P] * 13,
         "depth_rank": [_P] * 3 + [_I] + [_P] * 2,

@@ -20,7 +20,11 @@ The forward and the renderers open named spans at their layer boundaries
     prepass_kernel_views  views whose pre-pass (projection and binning, or
                    the 2DGS binning) ran as the ``csrc/prepass.cu`` kernels
     project_recompute  backwards of ``ProjectFunction`` that recomputed the
-                   plain projection
+                   plain projection (CPU tensors)
+    project_bwd    backwards of ``ProjectFunction`` that ran the
+                   ``project_bwd`` kernel (card tensors): a trace of a
+                   training step on the card counts one a recorded 3DGS
+                   render and no ``project_recompute``
 
 Tracing is off unless a ``torch.profiler`` is recording (the benchmark's
 traced window, or the ``tpu.profile_dir`` trace of the train CLI, which then

@@ -2,13 +2,15 @@
 binning as kernels.
 
 On the CPU: ``ProjectFunction``'s backward, which recomputes the plain
-projection, against autograd of the plain chain (bitwise), and the CPU
-entries ``project`` / ``bin_gaussians`` / ``bin_and_cap`` against the plain
-chains they take.  On the card (``gpu`` marker; skips without one): the
-binning kernels bitwise against ``bin_gaussians_plain`` on every budget
-path, the projection kernel against ``project_gaussians``, the gradients
-through ``ProjectFunction`` against plain autograd, a render with no host
-synchronisation, and one view's launches.
+projection for CPU tensors, against autograd of the plain chain (bitwise),
+and the CPU entries ``project`` / ``bin_gaussians`` / ``bin_and_cap``
+against the plain chains they take.  On the card (``gpu`` marker; skips
+without one): the binning kernels bitwise against ``bin_gaussians_plain``
+on every budget path, the projection kernel against ``project_gaussians``,
+the gradients through ``ProjectFunction`` (the ``project_bwd`` kernel)
+against plain autograd and the recompute bitwise, a render with no host
+synchronisation, and one view's launches.  ``tests/test_torch_project_bwd.py``
+holds the backward kernel in full.
 
 This file imports neither JAX nor the JAX package:
 
@@ -32,6 +34,7 @@ from generativedensification_torch.splat.projection import (
     _project_plain,
     project,
     project_gaussians,
+    project_vjp_recompute,
 )
 from generativedensification_torch.splat.rasterizer import rasterize
 from generativedensification_torch.tools.scenes import prepass_scene
@@ -294,15 +297,29 @@ def test_project_kernel_matches_plain(cuda_device, n, deg, bitwise):
 
 @pytest.mark.gpu
 def test_project_function_gradients_on_card(cuda_device):
-    """The kernel's forward with the recompute backward against autograd of
-    the plain chain on the card: a loss linear in the outputs gives the same
-    cotangents, so the same gradients."""
+    """The kernel's forward and the ``project_bwd`` kernel's backward against
+    autograd of the plain chain on the card: a loss linear in the outputs
+    gives the same cotangents, so the gradients agree within
+    ``PROJECT_RTOL`` of each one's largest value (the backward kernel sums
+    in its own order, so not bit for bit) where the forward kernel and the
+    chain agree on validity; the recompute, called explicitly, is still
+    bit for bit autograd's."""
     scene = prepass_scene(cuda_device, 20000, 256, seed=3)
     cam, leaves = _leaves(scene, offset=True)
     weights = _weights(scene, OUTPUTS, seed=3)
     ref = _plain_grads(cam, 1, leaves, weights)
+    before = kernels.launch_counts["project_bwd"]
     got = _function_grads(cam, 1, leaves, weights)
+    assert kernels.launch_counts["project_bwd"] == before + 1
+    with torch.no_grad():
+        flips = ProjectFunction.apply(cam, 1, *leaves)[6] != _project_plain(
+            cam, 1, *leaves)[0].valid
+    assert int(flips.sum()) <= FLIP_SHARE * 20000
     for g, r in zip(got, ref):
+        err = float((g - r)[~flips].abs().max()) / float(r.abs().max())
+        assert err <= PROJECT_RTOL, err
+    recomputed = project_vjp_recompute(cam, 1, leaves, weights, (True,) * 6)
+    for g, r in zip(recomputed, ref):
         torch.testing.assert_close(g, r, rtol=0, atol=0)
     means, shs, opa, scales, quats, cam = scene
     proj, _ = project(means, shs, opa, cam, 1, scales, quats)   # no leaf asks
