@@ -62,8 +62,8 @@ Drives ``generativedensification_torch`` only (no JAX):
 6. serving phase: the same network, ``forward(with_fine=True)`` (fused
    selection, densifier, fine render; 331,744 fine Gaussians): 2 warm-ups,
    5 timed forwards with exactly 16 forward and 4 backward compositor
-   launches each, finite outputs of the documented shapes, peak memory,
-   overflow and a device-time breakdown by stage;
+   launches each, finite outputs of the documented shapes, peak memory and
+   overflow;
 7. the 2DGS serving phases (``tpu.renderer=2dgs``, the same weights):
    kernel #3 (surfel forward) bitwise (``torch.equal``) against its plain
    version, and kernel #4 (surfel backward) in both modes against its
@@ -80,8 +80,7 @@ Drives ``generativedensification_torch`` only (no JAX):
    measured on), timed against the chain in turns (``surfel_setup_phase``);
    then the full-width serving forward with exactly 16 surfel-forward, 4
    surfel-backward and 16 surfel set-up launches (and no 3DGS launch),
-   finite 2DGS maps, peak memory, overflow and a device-time breakdown by
-   stage;
+   finite 2DGS maps, peak memory and overflow;
 8. the f32 train phases, each renderer: the training configuration
    (``load_config()``: ``mask_pool`` 49,152, k 12,000, drop-path 0.3, order
    shuffling, accumulation 2) with the warmup budgets of
@@ -90,10 +89,9 @@ Drives ``generativedensification_torch`` only (no JAX):
    with exactly 16 forward and 20 backward compositor launches each
    (4 ``selonly`` + 16 ``noabs`` for 3DGS, + 16 ``full`` for 2DGS; the
    2DGS state past micro-step 1000, so its regularizers are on), finite
-   loss and gradient norm, overflow, peak memory, a device-time breakdown
-   (forward, loss, backward by stage, optimizer) and the profiler's busy
-   share; then one micro-step each under ``GD_APOS_MODE`` ``gauss_dsum``,
-   ``gauss`` and ``gauss_dsum_col`` (deterministic algorithms, same weights,
+   loss and gradient norm, overflow and peak memory; then one micro-step
+   each under ``GD_APOS_MODE`` ``gauss_dsum``, ``gauss`` and
+   ``gauss_dsum_col`` (deterministic algorithms, same weights,
    batch and generator seed): 20 launches of kernel #5, respectively #6,
    the loss and every gradient against ``gauss_dsum`` (1e-6 scaled), and
    kernels #5 / #6 bitwise against their plain versions on the inputs
@@ -107,7 +105,7 @@ Drives ``generativedensification_torch`` only (no JAX):
    each timed in turns (f32, bf16, bf16, f32, f32, bf16, bf16, f32) after 2
    warm-ups per dtype, every run with the launch counts set to 0 just
    before and read just after (unchanged by the dtype: 16 + 4 serving, 16
-   + 20 train), a stage breakdown per dtype, the fine image's PSNR bf16
+   + 20 train), the fine image's PSNR bf16
    against f32 (at least ``BF16_PSNR_FLOOR``), each dtype's peak memory
    with its own network or trainer the only one on the card; then one
    2DGS bf16 micro-step (finite, 16 surfel-forward + 20 surfel-backward
@@ -138,11 +136,11 @@ Drives ``generativedensification_torch`` only (no JAX):
    the reference's ``epoch=49_residual.ckpt``): the serving forward at full
    width (f32, the base mode's 331,744 fine Gaussians, exactly 16 forward
    and 4 ``selonly`` launches each of 5 timed forwards, overflow, peak
-   memory, a stage breakdown) with kernel #1 bitwise and kernel #2 in
+   memory) with kernel #1 bitwise and kernel #2 in
    every mode against their plain versions on its fine render of view 0;
    the f32 train micro-step (the 3DGS training configuration at its warmup
-   budgets, exactly 16 + 4 ``selonly`` + 16 ``noabs`` launches, a stage
-   breakdown) with #1 bitwise and #2 ``noabs`` on a fine render's inputs;
+   budgets, exactly 16 + 4 ``selonly`` + 16 ``noabs`` launches) with #1
+   bitwise and #2 ``noabs`` on a fine render's inputs;
    the evaluation with a synthesized residual ``.ckpt`` (every key
    consumed), 50 finetune steps, the video and LPIPS (``eval_phase``);
 9d. the quality regression (``tools/overfit.py``): the three overfit
@@ -474,108 +472,6 @@ def check_outputs(out, B, V_total, H, W, N, fine_n=None, surfels=False):
             fail("fine validity mask malformed")
 
 
-def forward_breakdown(net, batch, with_fine: bool) -> dict:
-    """Device time of one forward by stage, from CUDA events recorded on the
-    stream around the ViT encoder, the volume transformer, each render
-    (projection or surfel setup, binning, compositing), each compositor
-    launch and, with the fine stage, the selection backward, the point
-    features + fine head, the densifier stages and the fine renders.  The
-    first V_total renders are the coarse ones; "coarse_renders" excludes the
-    selection backward they contain.  "other" is the feature lift, the
-    Gaussian heads, the pool and union gathers, the 2DGS maps (surface
-    depth, normals) and the gaps between stages."""
-    import torch
-
-    from generativedensification_torch.models import network as network_mod
-    from generativedensification_torch.splat import composite, surfel
-
-    names = ("img_encoder", "vol_decoder", "renders", "compositor",
-             "selection_backward", "point_feats_fine_head", "densifier")
-    spans = {n: [] for n in names}
-
-    def event():
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        return e
-
-    def timed(name, fn):
-        def run(*a, **k):
-            s = event()
-            r = fn(*a, **k)
-            spans[name].append((s, event()))
-            return r
-        return run
-
-    handles = []
-    mods = [("img_encoder", net.img_encoder), ("vol_decoder", net.vol_decoder)]
-    mods += [("densifier", st) for st in net.stages]
-    for name, mod in mods:
-        handles.append(mod.register_forward_pre_hook(
-            lambda m, a, n=name: spans[n].append([event(), None])))
-        handles.append(mod.register_forward_hook(
-            lambda m, a, o, n=name: spans[n][-1].__setitem__(1, event())))
-    if net.cfg.renderer == "2dgs":
-        patched = [(network_mod, "rasterize_surfels", "renders"),
-                   (surfel, "surfel_fwd", "compositor"),
-                   (surfel, "composite_surfels_backward", "selection_backward")]
-    else:
-        patched = [(network_mod, "rasterize", "renders"),
-                   (composite, "composite_fwd", "compositor"),
-                   (composite, "composite_backward", "selection_backward")]
-    saved = [getattr(m, a) for m, a, _ in patched]
-    for (m, a, name), fn in zip(patched, saved):
-        setattr(m, a, timed(name, fn))
-    net._point_feats = timed("point_feats_fine_head", net._point_feats)
-    net.decoder.fine = timed("point_feats_fine_head", net.decoder.fine)
-    try:
-        start = event()
-        net(batch, with_fine=with_fine)
-        end = event()
-    finally:
-        for (m, a, _), fn in zip(patched, saved):
-            setattr(m, a, fn)
-        del net._point_feats, net.decoder.fine
-        for h in handles:
-            h.remove()
-    torch.cuda.synchronize()
-    ms = {k: sum(s.elapsed_time(e) for s, e in v) for k, v in spans.items()}
-    renders = [s.elapsed_time(e) for s, e in spans["renders"]]
-    ms["coarse_renders"] = sum(renders[:V_TOTAL]) - ms["selection_backward"]
-    ms["fine_renders"] = sum(renders[V_TOTAL:])
-    ms["total"] = start.elapsed_time(end)
-    ms["other"] = ms["total"] - sum(
-        ms[k] for k in ("img_encoder", "vol_decoder", "coarse_renders",
-                        "selection_backward", "point_feats_fine_head",
-                        "densifier", "fine_renders"))
-    ms["render_data_plane"] = ms["renders"] - ms["compositor"] - ms["selection_backward"]
-    ms["compositor_launches"] = len(spans["compositor"])
-    return ms
-
-
-def device_busy(fn) -> dict:
-    """``torch.profiler`` over one call of ``fn`` (a forward or a train
-    micro-step): the summed device time of every CUDA kernel against the
-    call's wall time, and the top kernels."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # device kernels only: a user annotation (the optimizer's step range)
-    # also carries device time, which would count its kernels twice
-    kernels_ = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-                and not getattr(e, "is_user_annotation", False)]
-    busy_ms = sum(e.self_device_time_total for e in kernels_) / 1e3
-    top = sorted(kernels_, key=lambda e: -e.self_device_time_total)[:8]
-    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
-            "top": [(e.key[:60], e.count, e.self_device_time_total / 1e3) for e in top]}
-
-
 def timed_forwards(net, batch, with_fine: bool, expect: dict, n: int = 5):
     """2 warm-ups, then ``n`` forwards with the launch counts set to 0 just
     before each and read just after; fails unless every run launched
@@ -680,125 +576,6 @@ def timed_train_steps(step_fn, state, batch, expect: dict, n: int = 4):
             fail(f"train micro-step: expected launches {expect}, got {launches}")
         check_step_stats(stats, "train micro-step")
     return state, stats, times, launches, torch.cuda.max_memory_allocated()
-
-
-def _tensors(x):
-    """The tensors in a module output (tensors, tuples, dataclasses)."""
-    import dataclasses
-
-    import torch
-
-    if isinstance(x, torch.Tensor):
-        yield x
-    elif isinstance(x, (tuple, list)):
-        for y in x:
-            yield from _tensors(y)
-    elif dataclasses.is_dataclass(x):
-        for f in dataclasses.fields(x):
-            yield from _tensors(getattr(x, f.name))
-
-
-def train_breakdown(net, opt, state, batch):
-    """Device time of one train micro-step by stage, from CUDA events on the
-    stream: forward, loss, backward and optimizer; in the backward, the
-    compositor backwards (preamble, kernel, slot reduction and unpacking),
-    their kernel launches and slot reductions alone, and the spans of the
-    densifier stages, the volume transformer and the ViT, each from the
-    first gradient that reaches one of the module's outputs to the last
-    gradient accumulated into its parameters.  "backward_other" is the rest
-    of the backward: the losses' adjoints, the fine head, the pool and
-    union gathers, projection, SH and the 2DGS maps.  Returns the new
-    state and the times."""
-    import torch
-
-    from generativedensification_torch.splat import composite, surfel
-    from generativedensification_torch.train.loss import Losses
-    from generativedensification_torch.train.step import make_train_step
-
-    def event():
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        return e
-
-    marks, in_backward = {}, [False]
-    spans = {"compositor_backward": [], "compositor_backward_kernel": [],
-             "slot_reduction": []}
-    stages = {"densifier": list(net.stages), "vol_decoder": [net.vol_decoder],
-              "img_encoder": [net.img_encoder]}
-    first = {n: [] for n in stages}
-    last = {n: [] for n in stages}
-
-    class TimedLosses(Losses):
-        def __call__(self, batch, output, step):
-            marks["loss_start"] = event()
-            res = super().__call__(batch, output, step)
-            marks["loss_end"] = event()
-            in_backward[0] = True
-            return res
-
-    def timed(name, fn):
-        def run(*a, **k):
-            if not in_backward[0]:
-                return fn(*a, **k)
-            s = event()
-            r = fn(*a, **k)
-            spans[name].append((s, event()))
-            return r
-        return run
-
-    patched = [(composite, "composite_backward", "compositor_backward"),
-               (surfel, "composite_surfels_backward", "compositor_backward"),
-               (composite, "composite_bwd", "compositor_backward_kernel"),
-               (surfel, "surfel_bwd", "compositor_backward_kernel"),
-               (composite, "slots_to_gaussians", "slot_reduction"),
-               (surfel, "slots_to_gaussians", "slot_reduction")]
-    saved = [getattr(m, a) for m, a, _ in patched]
-    handles = [
-        opt.register_step_pre_hook(lambda *a: marks.__setitem__("opt_start", event())),
-        opt.register_step_post_hook(lambda *a: marks.__setitem__("opt_end", event())),
-    ]
-
-    def on_output(name):
-        def hook(mod, args, out):
-            for t in _tensors(out):
-                if t.requires_grad:
-                    t.register_hook(lambda g: first[name].append(event()))
-        return hook
-
-    for name, mods in stages.items():
-        for mod in mods:
-            handles.append(mod.register_forward_hook(on_output(name)))
-            for p in mod.parameters():
-                handles.append(p.register_post_accumulate_grad_hook(
-                    lambda p, n=name: last[n].append(event())))
-    step_fn = make_train_step(net, opt, TimedLosses(), with_fine=True)
-    for (m, a, name), fn in zip(patched, saved):
-        setattr(m, a, timed(name, fn))
-    try:
-        start = event()
-        state, _ = step_fn(state, batch)
-        end = event()
-    finally:
-        for (m, a, _), fn in zip(patched, saved):
-            setattr(m, a, fn)
-        for h in handles:
-            h.remove()
-    torch.cuda.synchronize()
-    el = lambda a, b: a.elapsed_time(b)
-    ms = {"forward": el(start, marks["loss_start"]),
-          "loss": el(marks["loss_start"], marks["loss_end"]),
-          "backward": el(marks["loss_end"], marks["opt_start"]),
-          "optimizer": el(marks["opt_start"], marks["opt_end"]),
-          "total": el(start, end)}
-    for name, v in spans.items():
-        ms[name] = sum(el(s, e) for s, e in v)
-    for name in stages:
-        ms[f"{name}_backward"] = (el(first[name][0], last[name][-1])
-                                  if first[name] and last[name] else 0.0)
-    ms["backward_other"] = ms["backward"] - ms["compositor_backward"] - sum(
-        ms[f"{n}_backward"] for n in stages)
-    ms["compositor_backward_calls"] = len(spans["compositor_backward"])
-    return state, ms
 
 
 def apos_phase(net, batch, step0: int, expect: dict, n_bwd: int):
@@ -1003,8 +780,7 @@ def reduction_records(captured: dict, calls: dict, label: str) -> dict:
 def train_phase(renderer: str, batch, expect: dict, device=None) -> dict:
     """The full-width f32 train micro-step of one renderer: the training
     configuration with its warmup budgets, seeded weights, 2 warm-up and
-    4 timed micro-steps (2 optimizer updates), a stage breakdown of one
-    more, the profiler's device-busy share of one more, then the
+    4 timed micro-steps (2 optimizer updates), then the
     GD_APOS_MODE micro-steps and kernels #5 / #6 on their inputs.  The
     2DGS state starts past micro-step 1000 so that its distortion and
     normal terms are active."""
@@ -1021,28 +797,19 @@ def train_phase(renderer: str, batch, expect: dict, device=None) -> dict:
     step_fn = make_train_step(net, opt, Losses(), with_fine=True)
     state, stats, times, launches, peak = timed_train_steps(
         step_fn, state, batch, expect)
-    state, split = train_breakdown(net, opt, state, batch)
-    busy = device_busy(lambda: step_fn(state, batch))
     step_ms = statistics.median(times)
     stats = {k: float(v) for k, v in stats.items()}
     rec = dict(renderer=renderer, step_ms=step_ms, step_runs_ms=times,
                samples_per_s=batch["tar_rgb"].shape[0] / step_ms * 1e3,
                launches=launches, peak_bytes=peak, stats=stats,
                overflow=stats["overflow"], optimizer_updates=opt.count,
-               micro_steps=state.step - step0, breakdown_ms=split,
-               busy_ms=busy["busy_ms"], busy_wall_ms=busy["wall_ms"],
-               busy_top=busy["top"], budgets=budgets_of(renderer),
+               micro_steps=state.step - step0, budgets=budgets_of(renderer),
                mask_pool=ncfg.mask_pool, k_num=ncfg.k_num,
                drop_path=ncfg.drop_path, shuffle_orders=ncfg.shuffle_orders)
     print(f"[train {renderer}] micro-step ms median {step_ms:.2f} (runs "
           f"{[round(t, 2) for t in times]}); {rec['samples_per_s']:.3f} samples/s; "
           f"launches {launches}; overflow {stats['overflow']:.0f}; stats "
           f"{json.dumps(stats)}; peak allocated {peak / 2**30:.2f} GiB")
-    print(f"[breakdown] {renderer} train micro-step, device ms by stage: "
-          f"{json.dumps(split)}")
-    print(f"[profiler] {renderer} train micro-step wall {busy['wall_ms']:.2f} ms, "
-          f"kernels busy {busy['busy_ms']:.2f} ms "
-          f"({busy['busy_ms'] / busy['wall_ms']:.1%}); top: {json.dumps(busy['top'])}")
     del opt, state, step_fn
     apos, captured, calls = apos_phase(net, batch, step0, expect,
                                        2 * V_TOTAL + N_VIEWS)
@@ -1216,7 +983,7 @@ def bf16_phase(batch, expect_serving: dict, expect_train: dict,
     the 3DGS serving forward (infer configuration) and the 3DGS train
     micro-step at B=1 (training configuration, warmup budgets), each timed
     in turns (f32, bf16, bf16, f32, ...) with the launch counts held per
-    run, and a stage breakdown of each dtype; the bf16 fine image must lie
+    run; the bf16 fine image must lie
     at least ``BF16_PSNR_FLOOR`` dB from the f32 one.  Then the peak memory
     of each dtype with its own network (or trainer) the only one on the
     card (``peak_alone``), and one 2DGS bf16 micro-step (finite, its launch
@@ -1268,8 +1035,7 @@ def bf16_phase(batch, expect_serving: dict, expect_train: dict,
             check_outputs(out, 1, V_TOTAL, HW, HW, n_coarse, n_fine)
             rec["serving"][dt] = dict(
                 forward_ms=statistics.median(times[dt]), runs_ms=times[dt],
-                overflow=int(out["overflow"].sum()),
-                breakdown_ms=forward_breakdown(net, batch, True))
+                overflow=int(out["overflow"].sum()))
         img = {dt: last[f"serving {dt}"]["image_fine"].float() for dt in dtypes}
         mse = float(((img["bfloat16"] - img["float32"]) ** 2).mean())
         psnr = -10 * np.log10(max(mse, 1e-20))
@@ -1306,12 +1072,9 @@ def bf16_phase(batch, expect_serving: dict, expect_train: dict,
     for dt in dtypes:
         stats = {k: float(v) for k, v in last[f"train {dt}"].items()}
         check_step_stats(last[f"train {dt}"], f"train {dt}")
-        net, opt, state = trainers[dt][:3]
-        state, split = train_breakdown(net, opt, state, batch)
-        trainers[dt][2] = state
         rec["train"][dt] = dict(step_ms=statistics.median(times[dt]),
-                                runs_ms=times[dt], stats=stats, breakdown_ms=split)
-    del trainers, runs, run, last, net, opt, state
+                                runs_ms=times[dt], stats=stats)
+    del trainers, runs, run, last
     for dt in dtypes:
         # one accumulating and one updating micro-step (accumulation 2)
         rec["train"][dt].update(peak_alone(lambda dt=dt: trainer(dt), advance,
@@ -1335,10 +1098,7 @@ def bf16_phase(batch, expect_serving: dict, expect_train: dict,
 
     for part in ("serving", "train"):
         for dt in dtypes:
-            r = dict(rec[part][dt])
-            split = r.pop("breakdown_ms")
-            print(f"[bf16] {part} {dt}: {json.dumps(r)}")
-            print(f"[breakdown] {part} {dt}, device ms by stage: {json.dumps(split)}")
+            print(f"[bf16] {part} {dt}: {json.dumps(rec[part][dt])}")
     print(f"[bf16] serving fine image PSNR bf16 vs f32 "
           f"{rec['serving']['fine_image_psnr_bf16_vs_f32']:.2f} dB; 2dgs bf16 "
           f"micro-step {json.dumps(rec['train_2dgs_bf16'])}")
@@ -1874,8 +1634,8 @@ def residual_serving_phase(batch, expect: dict, n_fine: int) -> dict:
     residual fine render of view 0 (its accumulated attributes binned at
     the serving budgets, the batch's view-0 image as ground truth), with
     that render's overflow; then 2 warm-ups and 5 timed forwards with
-    exactly ``expect`` launches each, finite outputs, overflow, peak memory
-    and a device-time breakdown by stage."""
+    exactly ``expect`` launches each, finite outputs, overflow and peak
+    memory."""
     import torch
 
     from generativedensification_torch.models.network import Network, NetworkConfig
@@ -1914,12 +1674,11 @@ def residual_serving_phase(batch, expect: dict, n_fine: int) -> dict:
         stats = fine_stats(out)
         out_r, times, launches, peak = timed_forwards(net, batch, True, expect)
         check_outputs(out_r, 1, V_TOTAL, HW, HW, n_coarse, n_fine)
-        split = forward_breakdown(net, batch, True)
     ov_coarse = int(out_c["overflow"].sum())
     ov = int(out_r["overflow"].sum())
     ms = statistics.median(times)
     rec = dict(forward_ms=ms, forward_runs_ms=times, launches=launches,
-               breakdown_ms=split, overflow=ov, overflow_coarse=ov_coarse,
+               overflow=ov, overflow_coarse=ov_coarse,
                overflow_fine=ov - ov_coarse, fine_gaussians=n_fine, fine=stats,
                peak_bytes=peak, kernel_fwd=fwd_rec, kernel_bwd=bwd_recs,
                phase_s=time.perf_counter() - t_phase)
@@ -1928,7 +1687,6 @@ def residual_serving_phase(batch, expect: dict, n_fine: int) -> dict:
           f"{ov_coarse} + fine {ov - ov_coarse} (view 0 fine {ov_view0}); fine "
           f"Gaussians {n_fine}: {json.dumps(stats)}; peak allocated "
           f"{peak / 2**30:.2f} GiB; phase {rec['phase_s']:.1f}s")
-    print(f"[breakdown] residual serving forward, device ms by stage: {json.dumps(split)}")
     del net, out, out_c, out_r
     torch.cuda.empty_cache()
     return rec
@@ -1939,7 +1697,7 @@ def residual_train_phase(batch, expect: dict) -> dict:
     3DGS training configuration at its warmup budgets, B=1, seeded
     weights): 2 warm-up and 4 timed micro-steps with exactly ``expect``
     launches each, finite loss and gradient norm, overflow and peak memory;
-    a stage breakdown of one more; then one more micro-step with the
+    then, after one more, one more micro-step with the
     compositor's calls recorded (again ``expect`` launches, kernel #2 4
     ``selonly`` + 16 ``noabs``), and kernel #1 bitwise and kernel #2
     ``noabs`` (scaled 5e-5, bitwise repeatable) against their plain
@@ -1963,9 +1721,8 @@ def residual_train_phase(batch, expect: dict) -> dict:
     step_fn = make_train_step(net, opt, Losses(), with_fine=True)
     state, stats, times, launches, peak = timed_train_steps(
         step_fn, state, batch, expect)
-    # the breakdown at the base train phase's micro-step (7th: accumulation
-    # only, no optimizer update), so that the two compare stage by stage
-    state, split = train_breakdown(net, opt, state, batch)
+    # one more first, so that the recorded micro-step is the 8th (an update)
+    state, _ = step_fn(state, batch)
     fwd_calls, bwd_calls = [], []
     restore = capture_composite(composite, fwd_calls, bwd_calls)
     try:
@@ -2005,7 +1762,7 @@ def residual_train_phase(batch, expect: dict) -> dict:
     rec = dict(step_ms=step_ms, step_runs_ms=times, launches=launches,
                bwd_modes_per_step=dict(selonly=N_VIEWS, noabs=2 * V_TOTAL),
                peak_bytes=peak, stats=stats, overflow=stats["overflow"],
-               fine_gaussians=n_fine, breakdown_ms=split, budgets=budgets_of("3dgs"),
+               fine_gaussians=n_fine, budgets=budgets_of("3dgs"),
                fwd_on_fine=dict(bitwise=True, ms=fwd_ms),
                bwd_noabs_on_fine=dict(max_scaled_err=bwd_err, ms=bwd_ms,
                                       bitwise_repeatable=True),
@@ -2016,8 +1773,6 @@ def residual_train_phase(batch, expect: dict) -> dict:
           f"{peak / 2**30:.2f} GiB; #1 on a fine render bitwise, {fwd_ms:.3f} ms; "
           f"#2 noabs scaled err {bwd_err:.2e}, {bwd_ms:.3f} ms; phase "
           f"{rec['phase_s']:.1f}s")
-    print(f"[breakdown] residual train micro-step, device ms by stage: "
-          f"{json.dumps(split)}")
     del net, opt, state, step_fn
     torch.cuda.empty_cache()
     return rec
@@ -2585,15 +2340,12 @@ def main() -> int:
         out_c, times_c, launches_c, peak_c = timed_forwards(
             net, batch, False, expect(composite_fwd=V_TOTAL))
         check_outputs(out_c, 1, V_TOTAL, HW, HW, n_coarse)
-        split_c = forward_breakdown(net, batch, False)
 
         # -- 6. the serving path
         out_f, times_f, launches_f, peak_f = timed_forwards(
             net, batch, True, expect(composite_fwd=2 * V_TOTAL,
                                      composite_bwd=N_VIEWS))
         check_outputs(out_f, 1, V_TOTAL, HW, HW, n_coarse, n_fine)
-        split_f = forward_breakdown(net, batch, True)
-        busy = device_busy(lambda: net(batch, with_fine=True))
     coarse_ms, fine_ms = statistics.median(times_c), statistics.median(times_f)
     base_fine = fine_stats(out_f)
     ov_coarse = int(out_c["overflow"].sum())
@@ -2606,11 +2358,6 @@ def main() -> int:
           f"{[round(t, 2) for t in times_f]}); launches {launches_f}; overflow "
           f"coarse {ov_coarse} + fine {ov_serving - ov_coarse}; fine Gaussians "
           f"{n_fine}: {json.dumps(base_fine)}; peak allocated {peak_f / 2**30:.2f} GiB")
-    print(f"[breakdown] coarse forward, device ms by stage: {json.dumps(split_c)}")
-    print(f"[breakdown] serving forward, device ms by stage: {json.dumps(split_f)}")
-    print(f"[profiler] serving wall {busy['wall_ms']:.2f} ms, kernels busy "
-          f"{busy['busy_ms']:.2f} ms ({busy['busy_ms'] / busy['wall_ms']:.1%}); "
-          f"top: {json.dumps(busy['top'])}")
     del net, out, out_c, out_f
     torch.cuda.empty_cache()
 
@@ -2656,8 +2403,6 @@ def main() -> int:
         out_s, times_s, launches_s, peak_s = timed_forwards(
             net2, batch, True, expect(surfel_fwd=2 * V_TOTAL, surfel_bwd=N_VIEWS))
         check_outputs(out_s, 1, V_TOTAL, HW, HW, n_coarse, n_fine, surfels=True)
-        split_s = forward_breakdown(net2, batch, True)
-        busy_s = device_busy(lambda: net2(batch, with_fine=True))
     surfel_ms = statistics.median(times_s)
     ov_surfel = int(out_s["overflow"].sum())
     print(f"[serving 2dgs] forward ms median {surfel_ms:.2f} (runs "
@@ -2666,10 +2411,6 @@ def main() -> int:
           f"({int(out_s['render_pkg'][1][5].sum())} valid); peak allocated "
           f"{peak_s / 2**30:.2f} GiB; rend_dist max "
           f"{float(out_s['rend_dist'].abs().max()):.3g}")
-    print(f"[breakdown] 2dgs serving forward, device ms by stage: {json.dumps(split_s)}")
-    print(f"[profiler] 2dgs serving wall {busy_s['wall_ms']:.2f} ms, kernels busy "
-          f"{busy_s['busy_ms']:.2f} ms ({busy_s['busy_ms'] / busy_s['wall_ms']:.1%}); "
-          f"top: {json.dumps(busy_s['top'])}")
     del net2, out2, out_s
     torch.cuda.empty_cache()
 
@@ -2867,17 +2608,12 @@ def main() -> int:
         })
     print(json.dumps({
         "coarse": {"forward_ms": coarse_ms, "forward_runs_ms": times_c,
-                   "launches": launches_c, "breakdown_ms": split_c,
-                   "overflow": ov_coarse, "peak_bytes": peak_c},
+                   "launches": launches_c, "overflow": ov_coarse, "peak_bytes": peak_c},
         "serving": {"forward_ms": fine_ms, "forward_runs_ms": times_f,
-                    "launches": launches_f, "breakdown_ms": split_f,
-                    "busy_ms": busy["busy_ms"], "busy_wall_ms": busy["wall_ms"],
-                    "overflow": ov_serving, "fine_gaussians": n_fine,
+                    "launches": launches_f, "overflow": ov_serving, "fine_gaussians": n_fine,
                     "fine_valid": fine_valid, "fine": base_fine, "peak_bytes": peak_f},
         "serving_2dgs": {"forward_ms": surfel_ms, "forward_runs_ms": times_s,
-                         "launches": launches_s, "breakdown_ms": split_s,
-                         "busy_ms": busy_s["busy_ms"],
-                         "busy_wall_ms": busy_s["wall_ms"], "overflow": ov_surfel,
+                         "launches": launches_s, "overflow": ov_surfel,
                          "peak_bytes": peak_s},
         "train": train, "bf16": bf16, "cli": cli, "eval": evals,
         "eval_full": eval_full, "residual": residual, "overfit": overfit, "tiny": tiny,

@@ -29,7 +29,7 @@ import dataclasses
 import torch
 
 from ..utils import tracing
-from .kernels import MAIN_KERNELS, build, launch_counts
+from .kernels import card_device, launch
 from .projection import ProjectedGaussians
 
 DEAD_KEY = 2**31 - 1
@@ -90,8 +90,7 @@ def bin_and_cap(proj: ProjectedGaussians, height: int, width: int,
     The per-tile slot cap is a shared semantic: the counts are clamped once,
     so that every path composites the same front-most ``max_per_tile``
     slots of each tile, and the truncation counts in the overflow.  Counts
-    ``pairs`` (the clamped counts) and ``pairs_dropped`` (that overflow),
-    and ``prepass_kernel_views`` where the kernels binned."""
+    ``pairs`` (the clamped counts) and ``pairs_dropped`` (that overflow)."""
     if proj.xy.device.type == "cpu":
         bins = bin_gaussians_plain(proj, height, width, tile_size, max_tiles,
                                    max_pairs, enum_tiles)
@@ -102,7 +101,6 @@ def bin_and_cap(proj: ProjectedGaussians, height: int, width: int,
         bins, tile_counts, overflow = _bin_kernels(
             proj, height, width, tile_size, max_tiles, max_pairs, enum_tiles,
             max_per_tile)
-        tracing.count("prepass_kernel_views", 1)
     tracing.count("pairs", tile_counts)
     tracing.count("pairs_dropped", overflow)
     return bins, tile_counts, overflow
@@ -118,39 +116,27 @@ def _bin_kernels(proj: ProjectedGaussians, height: int, width: int,
     elementwise op); the ``max_pairs`` budget keeps the chain's rank-ordered
     cumsum between ``tile_keys`` and the key sort.  Reads nothing back."""
     i32, f32 = torch.int32, torch.float32
-    dev = proj.xy.device
-    if dev.type != "cuda":
-        raise ValueError(f"the binning kernels: unsupported device {dev}")
     N = proj.xy.shape[0]
     tiles_x, tiles_y, num_tiles, n_pow2 = _grid(N, height, width, tile_size)
     E = max_tiles if enum_tiles is None else max(enum_tiles, max_tiles)
     f = lambda t: t.detach().to(f32).contiguous()
     xy, radius, conic, opacity = f(proj.xy), f(proj.radius), f(proj.conic), f(proj.opacity)
     valid = proj.valid.contiguous()
+    dev = card_device("the binning kernels", xy, radius, conic, opacity, valid)
     depth_key = torch.where(valid, proj.depth.detach().to(f32), float("inf"))
-    lib = build(MAIN_KERNELS)["prepass"].lib
-    stream = torch.cuda.current_stream(dev).cuda_stream
     e = lambda shape, dtype=i32: torch.empty(shape, dtype=dtype, device=dev)
-
-    def launch(name, *args):
-        with torch.cuda.device(dev):
-            err = getattr(lib, f"gd_{name}")(*args, stream)
-        if err != 0:
-            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-        launch_counts[name] += 1
-
     # global front-to-back rank (culled last) from the chain's STABLE sort;
     # counters: [0] the binning overflow, [1] tile_ranges' finished blocks
     order64 = torch.sort(depth_key, stable=True).indices
     order, rank, counters = e(N), e(N), e(2, torch.int64)
-    launch("depth_rank", order64.data_ptr(), order.data_ptr(), rank.data_ptr(), N,
+    launch("depth_rank", dev, order64.data_ptr(), order.data_ptr(), rank.data_ptr(), N,
            counters.data_ptr())
 
     keys = e((max_tiles, N))
     pairs_budget = max_pairs is not None and max_pairs < N * max_tiles
     n_slots = e(N) if pairs_budget else None
     if N:
-        launch("tile_keys", xy.data_ptr(), radius.data_ptr(), conic.data_ptr(),
+        launch("tile_keys", dev, xy.data_ptr(), radius.data_ptr(), conic.data_ptr(),
                opacity.data_ptr(), valid.data_ptr(), rank.data_ptr(), keys.data_ptr(),
                None if n_slots is None else n_slots.data_ptr(), counters.data_ptr(),
                N, tiles_x, tiles_y, tile_size, max_tiles, E, n_pow2)
@@ -171,7 +157,7 @@ def _bin_kernels(proj: ProjectedGaussians, height: int, width: int,
     sorted_valid = e(P, torch.bool)
     starts, counts, capped = e(num_tiles + 1), e(num_tiles), e(num_tiles)
     overflow, overflow_total = e(()), e(())
-    launch("tile_ranges", sorted_keys.data_ptr(), perm.data_ptr(), sorted_ids.data_ptr(),
+    launch("tile_ranges", dev, sorted_keys.data_ptr(), perm.data_ptr(), sorted_ids.data_ptr(),
            sorted_o.data_ptr(), sorted_rank.data_ptr(), sorted_valid.data_ptr(),
            starts.data_ptr(), counts.data_ptr(), capped.data_ptr(), overflow.data_ptr(),
            overflow_total.data_ptr(), counters.data_ptr(), P, N, n_pow2, num_tiles,

@@ -1,6 +1,6 @@
 """The 3DGS compositing kernels and the slot-reduction kernels: CUDA kernel
-wrappers, launch counts and the plain PyTorch versions; the build of every
-kernel of the port.
+wrappers and the plain PyTorch versions; the build, the launch and the
+launch counts of every kernel of the port.
 
 Replaces ``generativedensification_tpu/splat/pallas_kernels.py``'s
 ``pallas_composite_fwd`` (``csrc/composite_fwd.cu``),
@@ -13,17 +13,19 @@ Replaces ``generativedensification_tpu/splat/pallas_kernels.py``'s
 ``probe_kernels.py``, and the renders' pre-pass (``csrc/prepass.cu``: the
 projection and its backward, the surfel set-up and the tile binning, which
 replace no TPU kernel) in ``projection.py``, ``surfel.py`` and ``binning.py``; all are
-registered here, so that
-``build()`` compiles every source and ``launch_counts`` counts every
-launch.  Each source is
+registered here, so that ``build()`` compiles every source.  Each source is
 built with ``nvcc`` for ``sm_90a`` into a plain-C shared library at first
 use (the sources asked for compiled at once, one ``nvcc`` each) and loaded
 with ``ctypes``; nothing is compiled or imported for them when this module
 is imported.
 
-``composite_fwd``, ``composite_bwd``, ``reduce_slots`` and ``transpose_rows``
-are the entries: tensors on the card launch the kernel (or raise), tensors on
-the CPU take the plain version.  Nothing else chooses.
+``launch`` is the one place that calls a kernel: every wrapper checks its
+inputs (``card_device`` is the rule for tensors on the card) and then
+launches through it, which builds the source at first use, runs the entry
+on the device's current stream, raises on a CUDA error and adds one to
+``launch_counts``.  ``composite_fwd``, ``composite_bwd``, ``reduce_slots``
+and ``transpose_rows`` are this module's wrappers: tensors on the card launch
+the kernel (or raise), tensors on the CPU take the plain version.
 
 Inputs shared by both kernels:
   table       (N, 12) f32 per-gaussian rows
@@ -79,20 +81,6 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# launches of each kernel of the port; a wrapper adds one where it
-# launches, and nowhere else
-launch_counts = {"composite_fwd": 0, "composite_bwd": 0, "surfel_fwd": 0,
-                 "surfel_bwd": 0, "reduce_slots": 0, "transpose_rows": 0,
-                 "composite_fwd_probe": 0, "surfel_fwd_probe": 0, "project": 0,
-                 "surfel_setup": 0, "depth_rank": 0, "tile_keys": 0,
-                 "tile_ranges": 0, "project_bwd": 0}
-
-
-def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
-
-
 class _Library:
     """One kernel source, its built shared library and what its build
     reported.  ``argtypes`` are those of the entry point ``gd_<name>``, or a
@@ -138,6 +126,16 @@ _libraries = {
 # breakdown asks for them
 MAIN_KERNELS = ("composite_fwd", "composite_bwd", "surfel_fwd", "surfel_bwd",
                 "reduce_slots", "transpose_rows", "prepass")
+# the library of each entry point; launches of each, counted by ``launch``
+_library_of = {entry: name for name, lib in _libraries.items() for entry in lib.entries}
+launch_counts = dict.fromkeys(_library_of, 0)
+# entry -> (the library handle it was resolved from, ``gd_<entry>``)
+_resolved: dict = {}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
 
 
 def _nvcc() -> str:
@@ -197,6 +195,42 @@ def build(names=None) -> dict[str, _Library]:
     return _libraries
 
 
+def launch(entry: str, dev: torch.device, *args) -> None:
+    """Launch the entry point ``gd_<entry>`` on ``dev`` (the inputs' CUDA
+    device) with ``args`` and the device's current stream, and count it in
+    ``launch_counts``.  Builds the entry's source at first use (the serving
+    and training sources together, a probe's alone) and keeps the resolved
+    entry point; raises ValueError for a device that is not CUDA and
+    RuntimeError for a CUDA error."""
+    if dev.type != "cuda":
+        raise ValueError(f"{entry}: unsupported device {dev}")
+    lib = _libraries[_library_of[entry]]
+    if lib.lib is None:
+        build(MAIN_KERNELS if lib.name in MAIN_KERNELS else (lib.name,))
+    handle, fn = _resolved.get(entry, (None, None))
+    if handle is not lib.lib:   # first launch, or a tool swapped in another build
+        fn = getattr(lib.lib, f"gd_{entry}")
+        _resolved[entry] = lib.lib, fn
+    with torch.cuda.device(dev):
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
+    launch_counts[entry] += 1
+
+
+def card_device(name: str, first, *rest) -> torch.device:
+    """The rule for the tensors a kernel takes (``None`` in ``rest``
+    skipped): one CUDA device, each contiguous.  Returns the device, or
+    raises ValueError."""
+    dev = first.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    for t in (first, *rest):
+        if t is not None and (t.device != dev or not t.is_contiguous()):
+            raise ValueError(f"{name}: inputs must be contiguous and on one device")
+    return dev
+
+
 def _check_inputs(table, sorted_ids, tile_starts, tile_counts, num_tiles,
                   width: int = TABLE_W):
     if table.dtype != torch.float32 or table.dim() != 2 or table.shape[1] != width:
@@ -211,17 +245,16 @@ def _check_inputs(table, sorted_ids, tile_starts, tile_counts, num_tiles,
         raise ValueError("tile_starts / tile_counts must have one entry per tile")
 
 
-def _check_cuda(tile_size, table, *rest):
-    """What the CUDA kernels take beyond ``_check_inputs``."""
+def _check_cuda(name, tile_size, table, *rest) -> torch.device:
+    """What the CUDA compositors take beyond ``_check_inputs``: card inputs
+    (``card_device``), 16 or 32 px tiles and a 16-byte aligned table."""
+    dev = card_device(name, table, *rest)
     if tile_size not in (16, 32):
         raise ValueError(f"the CUDA compositors take 16 or 32 px tiles, "
                          f"got {tile_size}")
-    if any(t.device != table.device for t in rest):
-        raise ValueError("all compositor inputs must be on one device")
-    if not all(t.is_contiguous() for t in (table, *rest)):
-        raise ValueError("compositor inputs must be contiguous")
     if table.data_ptr() % 16:
         raise ValueError("table must be 16-byte aligned")
+    return dev
 
 
 def composite_fwd(table, sorted_ids, tile_starts, tile_counts,
@@ -229,26 +262,16 @@ def composite_fwd(table, sorted_ids, tile_starts, tile_counts,
     """Composite every tile; (T, 5, ts²) rows [r, g, b, depth, alpha]."""
     num_tiles = tiles_x * tiles_y
     _check_inputs(table, sorted_ids, tile_starts, tile_counts, num_tiles)
-    dev = table.device
-    if dev.type == "cpu":
+    if table.device.type == "cpu":
         return composite_fwd_plain(table, sorted_ids, tile_starts, tile_counts,
                                    tiles_x, tiles_y, tile_size)
-    if dev.type != "cuda":
-        raise ValueError(f"composite_fwd: unsupported device {dev}")
-    _check_cuda(tile_size, table, sorted_ids, tile_starts, tile_counts)
-    lib = build(MAIN_KERNELS)["composite_fwd"].lib
+    dev = _check_cuda("composite_fwd", tile_size, table, sorted_ids, tile_starts,
+                      tile_counts)
     out = torch.empty((num_tiles, OUT_ROWS, tile_size * tile_size),
                       dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.gd_composite_fwd(
-            table.data_ptr(), sorted_ids.data_ptr(), tile_starts.data_ptr(),
-            tile_counts.data_ptr(), out.data_ptr(), num_tiles, tiles_x,
-            tile_size, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"composite_fwd launch failed: CUDA error {err}")
-    launch_counts["composite_fwd"] += 1
+    launch("composite_fwd", dev, table.data_ptr(), sorted_ids.data_ptr(),
+           tile_starts.data_ptr(), tile_counts.data_ptr(), out.data_ptr(), num_tiles,
+           tiles_x, tile_size)
     return out
 
 
@@ -472,27 +495,16 @@ def composite_bwd(table, sorted_ids, tile_starts, tile_counts, gc4, g2,
     num_tiles = tiles_x * tiles_y
     _check_inputs(table, sorted_ids, tile_starts, tile_counts, num_tiles)
     _check_bwd(gc4, g2, num_tiles, tile_size, mode)
-    dev = table.device
-    if dev.type == "cpu":
+    if table.device.type == "cpu":
         return composite_bwd_plain(table, sorted_ids, tile_starts, tile_counts,
                                    gc4, g2, tiles_x, tiles_y, tile_size, mode)
-    if dev.type != "cuda":
-        raise ValueError(f"composite_bwd: unsupported device {dev}")
-    _check_cuda(tile_size, table, sorted_ids, tile_starts, tile_counts, gc4, g2)
-    lib = build(MAIN_KERNELS)["composite_bwd"].lib
+    dev = _check_cuda("composite_bwd", tile_size, table, sorted_ids, tile_starts,
+                      tile_counts, gc4, g2)
     out = torch.zeros((sorted_ids.shape[0], BWD_ROWS[mode]),
                       dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.gd_composite_bwd(
-            table.data_ptr(), sorted_ids.data_ptr(), tile_starts.data_ptr(),
-            tile_counts.data_ptr(), gc4.data_ptr(), g2.data_ptr(),
-            out.data_ptr(), num_tiles, tiles_x, tile_size,
-            _BWD_MODE_ID[mode], stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"composite_bwd launch failed: CUDA error {err}")
-    launch_counts["composite_bwd"] += 1
+    launch("composite_bwd", dev, table.data_ptr(), sorted_ids.data_ptr(),
+           tile_starts.data_ptr(), tile_counts.data_ptr(), gc4.data_ptr(), g2.data_ptr(),
+           out.data_ptr(), num_tiles, tiles_x, tile_size, _BWD_MODE_ID[mode])
     return out
 
 
@@ -615,15 +627,6 @@ def _check_f32_2d(name, x):
                          f"{x.dtype}")
 
 
-def _cuda_ready(name, *ts):
-    dev = ts[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {dev}")
-    if any(t.device != dev for t in ts) or not all(t.is_contiguous() for t in ts):
-        raise ValueError(f"{name}: inputs must be contiguous and on one device")
-    return dev
-
-
 def reduce_slots(rows, n: int, d: int) -> torch.Tensor:
     """Sum groups of ``d`` consecutive rows: (n·d, w) -> (n, w), each output
     the sum of its d rows in increasing order."""
@@ -632,16 +635,10 @@ def reduce_slots(rows, n: int, d: int) -> torch.Tensor:
         raise ValueError(f"rows must have n·d = {n * d} rows, got {rows.shape[0]}")
     if rows.device.type == "cpu":
         return reduce_slots_plain(rows, n, d)
-    dev = _cuda_ready("reduce_slots", rows)
-    lib = build(MAIN_KERNELS)["reduce_slots"].lib
+    dev = card_device("reduce_slots", rows)
     w = rows.shape[1]
     out = torch.empty((n, w), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.gd_reduce_slots(rows.data_ptr(), out.data_ptr(), n, d, w,
-                                  torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"reduce_slots launch failed: CUDA error {err}")
-    launch_counts["reduce_slots"] += 1
+    launch("reduce_slots", dev, rows.data_ptr(), out.data_ptr(), n, d, w)
     return out
 
 
@@ -660,16 +657,10 @@ def transpose_rows(cols) -> torch.Tensor:
     _check_f32_2d("cols", cols)
     if cols.device.type == "cpu":
         return transpose_rows_plain(cols)
-    dev = _cuda_ready("transpose_rows", cols)
-    lib = build(MAIN_KERNELS)["transpose_rows"].lib
+    dev = card_device("transpose_rows", cols)
     w, M = cols.shape
     out = torch.empty((M, w), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.gd_transpose_rows(cols.data_ptr(), out.data_ptr(), w, M,
-                                    torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"transpose_rows launch failed: CUDA error {err}")
-    launch_counts["transpose_rows"] += 1
+    launch("transpose_rows", dev, cols.data_ptr(), out.data_ptr(), w, M)
     return out
 
 

@@ -54,7 +54,7 @@ from __future__ import annotations
 import torch
 
 from . import kernels, surfel_kernels
-from .kernels import ALPHA_MAX, ALPHA_MIN, CHUNK, OUT_ROWS, SUBTILE, T_EPS, launch_counts
+from .kernels import ALPHA_MAX, ALPHA_MIN, CHUNK, OUT_ROWS, SUBTILE, T_EPS
 
 THREADS = 256
 BATCH = 256                    # slots staged per batch by the production kernels
@@ -109,31 +109,21 @@ def composite_fwd_probe(variant: str, table, sorted_ids, tile_starts,
     _check_variant(variant, COMPOSITE_VARIANTS)
     num_tiles = tiles_x * tiles_y
     kernels._check_inputs(table, sorted_ids, tile_starts, tile_counts, num_tiles)
-    dev = table.device
-    if dev.type == "cpu":
+    if table.device.type == "cpu":
         return composite_fwd_probe_plain(variant, table, sorted_ids, tile_starts,
                                          tile_counts, tiles_x, tiles_y, tile_size)
-    if dev.type != "cuda":
-        raise ValueError(f"composite_fwd_probe: unsupported device {dev}")
-    kernels._check_cuda(tile_size, table, sorted_ids, tile_starts, tile_counts)
+    dev = kernels._check_cuda("composite_fwd_probe", tile_size, table, sorted_ids,
+                              tile_starts, tile_counts)
     per_cta = subtiles_per_cta(variant)
     subtiles = num_tiles * (tile_size // SUBTILE) ** 2
     if subtiles % per_cta:
         raise ValueError(f"{variant} needs a multiple of {per_cta} sub-tiles, got "
                          f"{subtiles}")
-    lib = kernels.build(("composite_fwd_probe",))["composite_fwd_probe"].lib
     out = torch.empty((num_tiles, OUT_ROWS, tile_size * tile_size),
                       dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.gd_composite_fwd_probe(
-            COMPOSITE_VARIANTS.index(variant), table.data_ptr(),
-            sorted_ids.data_ptr(), tile_starts.data_ptr(), tile_counts.data_ptr(),
-            out.data_ptr(), num_tiles, tiles_x, tile_size,
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"composite_fwd_probe {variant} launch failed: "
-                           f"CUDA error {err}")
-    launch_counts["composite_fwd_probe"] += 1
+    kernels.launch("composite_fwd_probe", dev, COMPOSITE_VARIANTS.index(variant),
+                   table.data_ptr(), sorted_ids.data_ptr(), tile_starts.data_ptr(),
+                   tile_counts.data_ptr(), out.data_ptr(), num_tiles, tiles_x, tile_size)
     variant_launches[("composite", variant)] += 1
     return out
 
@@ -146,28 +136,18 @@ def surfel_fwd_probe(variant: str, table, sorted_ids, tile_starts, tile_counts,
     num_tiles = tiles_x * tiles_y
     surfel_kernels._check_inputs(table, sorted_ids, tile_starts, tile_counts,
                                  planes, num_tiles)
-    dev = table.device
-    if dev.type == "cpu":
+    if table.device.type == "cpu":
         return surfel_fwd_probe_plain(variant, table, sorted_ids, tile_starts,
                                       tile_counts, planes, tiles_x, tiles_y,
                                       tile_size)
-    if dev.type != "cuda":
-        raise ValueError(f"surfel_fwd_probe: unsupported device {dev}")
-    kernels._check_cuda(tile_size, table, sorted_ids, tile_starts, tile_counts,
-                        planes)
-    lib = kernels.build(("surfel_fwd_probe",))["surfel_fwd_probe"].lib
+    dev = kernels._check_cuda("surfel_fwd_probe", tile_size, table, sorted_ids,
+                              tile_starts, tile_counts, planes)
     out = torch.empty((num_tiles, len(surfel_kernels.FWD_ROWS),
                        tile_size * tile_size), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.gd_surfel_fwd_probe(
-            SURFEL_VARIANTS.index(variant), table.data_ptr(), sorted_ids.data_ptr(),
-            tile_starts.data_ptr(), tile_counts.data_ptr(), planes.data_ptr(),
-            out.data_ptr(), num_tiles, tiles_x, tile_size,
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"surfel_fwd_probe {variant} launch failed: "
-                           f"CUDA error {err}")
-    launch_counts["surfel_fwd_probe"] += 1
+    kernels.launch("surfel_fwd_probe", dev, SURFEL_VARIANTS.index(variant),
+                   table.data_ptr(), sorted_ids.data_ptr(), tile_starts.data_ptr(),
+                   tile_counts.data_ptr(), planes.data_ptr(), out.data_ptr(), num_tiles,
+                   tiles_x, tile_size)
     variant_launches[("surfel", variant)] += 1
     return out
 

@@ -27,8 +27,7 @@ import torch
 
 from ..core.sh import _C0, _C1, _C2, _C3, eval_sh_color, sh_basis
 from ..core.transforms import normalize_quat, quat_to_rotmat
-from ..utils import tracing
-from .kernels import MAIN_KERNELS, build, launch_counts
+from .kernels import card_device, launch
 
 # 3DGS constants
 NEAR_CULL = 0.2          # view-space z culling threshold
@@ -189,30 +188,23 @@ def _camera_tensors(camera):
             camera.camera_center, camera.tan_half_fovx, camera.tan_half_fovy)
 
 
-def _camera_args(camera, dev) -> tuple:
-    """The camera as the projection kernels take it: each tensor's device
-    pointer and strides (no host copy)."""
-    wvt, fpt, center, tanx, tany = _camera_tensors(camera)
-    if any(t.device != dev or t.dtype != torch.float32
-           for t in (wvt, fpt, center, tanx, tany)):
-        raise ValueError("the camera's tensors must be float32 on the Gaussians' device")
-    if wvt.shape != (4, 4) or fpt.shape != (4, 4) or center.shape != (3,) \
-            or tanx.dim() or tany.dim():
-        raise ValueError("the projection kernel takes one camera (no batch dims)")
-    return (wvt.data_ptr(), *wvt.stride(), fpt.data_ptr(), *fpt.stride(),
-            center.data_ptr(), center.stride(0), tanx.data_ptr(), tany.data_ptr())
+def _camera_args(tensors, dev, what="the projection kernel", items="Gaussians") -> tuple:
+    """The camera's tensors (``_camera_tensors``, or the surfel set-up's
+    ones without the projection matrix) as the pre-pass kernels take them:
+    each tensor's device pointer and strides (no host copy)."""
+    if any(t.device != dev or t.dtype != torch.float32 for t in tensors):
+        raise ValueError(f"the camera's tensors must be float32 on the {items}' device")
+    if [tuple(t.shape) for t in tensors] != [(4, 4)] * (len(tensors) - 3) + [(3,), (), ()]:
+        raise ValueError(f"{what} takes one camera (no batch dims)")
+    return tuple(a for t in tensors for a in (t.data_ptr(), *t.stride()))
 
 
-def _check_degree(sh_degree: int) -> None:
+def _check_shapes(n, sh_degree, shs, rows, what="the projection kernel") -> None:
+    """The pre-pass kernels' SH degree (0-3), each (name, tensor, shape) of
+    ``rows`` (``None`` tensors skipped) and ``shs`` (n, >= (d + 1)², 3)."""
     if not 0 <= sh_degree <= 3:
-        raise ValueError(f"the projection kernel takes SH degree 0-3, got {sh_degree}")
-
-
-def _check_shapes(n, sh_degree, means3d, shs, opacity, scales, rotations,
-                  screen_offset) -> None:
-    for name, t, shape in (("means3d", means3d, (n, 3)), ("opacity", opacity, (n,)),
-                           ("scales", scales, (n, 3)), ("rotations", rotations, (n, 4)),
-                           ("screen_offset", screen_offset, (n, 2))):
+        raise ValueError(f"{what} takes SH degree 0-3, got {sh_degree}")
+    for name, t, shape in rows:
         if t is not None and tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
     if shs.dim() != 3 or shs.shape[0] != n or shs.shape[2] != 3 \
@@ -221,34 +213,34 @@ def _check_shapes(n, sh_degree, means3d, shs, opacity, scales, rotations,
                          f"{tuple(shs.shape)}")
 
 
+def _rows(n, means3d, opacity, scales, rotations, screen_offset) -> tuple:
+    """The projection's per-Gaussian inputs beside ``shs``, with the shape
+    each must have, for ``_check_shapes``."""
+    return (("means3d", means3d, (n, 3)), ("opacity", opacity, (n,)),
+            ("scales", scales, (n, 3)), ("rotations", rotations, (n, 4)),
+            ("screen_offset", screen_offset, (n, 2)))
+
+
 def _project_kernel(camera, sh_degree, means3d, shs, opacity, scales, rotations,
                     screen_offset) -> tuple:
     """One launch of the projection kernel: (xy, depth, conic, color,
     opacity_eff, radius, valid) for one view."""
     f32 = torch.float32
-    dev = means3d.device
     N = means3d.shape[0]
-    _check_degree(sh_degree)
     f = lambda t: t.detach().to(f32).contiguous()
     means3d, shs, opacity, scales, rotations = (
         f(means3d), f(shs), f(opacity), f(scales), f(rotations))
     offset = None if screen_offset is None else f(screen_offset)
-    _check_shapes(N, sh_degree, means3d, shs, opacity, scales, rotations, offset)
-    cam = _camera_args(camera, dev)
+    _check_shapes(N, sh_degree, shs, _rows(N, means3d, opacity, scales, rotations, offset))
+    dev = card_device("project", means3d, shs, opacity, scales, rotations, offset)
+    cam = _camera_args(_camera_tensors(camera), dev)
     e = lambda shape, dtype=f32: torch.empty(shape, dtype=dtype, device=dev)
     outs = (e((N, 2)), e(N), e((N, 3)), e((N, 3)), e(N), e(N), e(N, torch.bool))
     if N:
-        lib = build(MAIN_KERNELS)["prepass"].lib
-        ptr = lambda t: None if t is None else t.data_ptr()
-        with torch.cuda.device(dev):
-            err = lib.gd_project(
-                means3d.data_ptr(), shs.data_ptr(), shs.stride(0), opacity.data_ptr(),
-                scales.data_ptr(), rotations.data_ptr(), ptr(offset), *cam, N,
-                camera.width, camera.height, sh_degree, *(o.data_ptr() for o in outs),
-                torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"project launch failed: CUDA error {err}")
-        launch_counts["project"] += 1
+        launch("project", dev, means3d.data_ptr(), shs.data_ptr(), shs.stride(0),
+               opacity.data_ptr(), scales.data_ptr(), rotations.data_ptr(),
+               None if offset is None else offset.data_ptr(), *cam, N, camera.width,
+               camera.height, sh_degree, *(o.data_ptr() for o in outs))
     return outs
 
 
@@ -287,7 +279,6 @@ def project_vjp_recompute(camera, sh_degree, inputs, grads, need) -> tuple:
     got = iter(torch.autograd.grad([o for o, _ in pairs], wrt,
                                    [g for _, g in pairs], allow_unused=True)
                if pairs and wrt else [None] * len(wrt))
-    tracing.count("project_recompute", 1)
     return tuple(next(got) if n else None for n in need)
 
 
@@ -478,8 +469,7 @@ def _project_vjp_kernel(camera, sh_degree, inputs, grads, need) -> tuple:
     means3d, shs, opacity, scales, rotations, offset = inputs
     dev = means3d.device
     N = means3d.shape[0]
-    _check_degree(sh_degree)
-    _check_shapes(N, sh_degree, *inputs)
+    _check_shapes(N, sh_degree, shs, _rows(N, means3d, opacity, scales, rotations, offset))
     present = [t for t in inputs if t is not None]
     if any(t.dtype not in (torch.float32, torch.bfloat16) or t.device != dev
            for t in present):
@@ -492,7 +482,7 @@ def _project_vjp_kernel(camera, sh_degree, inputs, grads, need) -> tuple:
             raise ValueError(f"the cotangent of {name} must be ({N}, {shape}) float32 on "
                              f"the inputs' device, got {tuple(g.shape)} {g.dtype}")
         cots.append(None if g is None else g.contiguous())
-    cam = _camera_args(camera, dev)
+    cam = _camera_args(_camera_tensors(camera), dev)
     # rows may lie apart (the network's attribute slices); within a row packed
     packed = lambda t, inner: t if t is None or t.stride()[1:] == inner else t.contiguous()
     means3d, scales, rotations, offset = (
@@ -502,22 +492,15 @@ def _project_vjp_kernel(camera, sh_degree, inputs, grads, need) -> tuple:
     outs = [torch.empty(t.shape, dtype=t.dtype, device=dev) if n and t is not None
             else None for t, n in zip(inputs, need)]
     if N:
-        lib = build(MAIN_KERNELS)["prepass"].lib
         ptr = lambda t: None if t is None else t.data_ptr()
         row = lambda t: 0 if t is None else t.stride(0)
         bf16 = sum(1 << k for k, t in enumerate(inputs)
                    if t is not None and t.dtype == torch.bfloat16)
-        with torch.cuda.device(dev):
-            err = lib.gd_project_bwd(
-                means3d.data_ptr(), row(means3d), shs.data_ptr(), row(shs), shs.shape[1],
-                scales.data_ptr(), row(scales), rotations.data_ptr(), row(rotations),
-                ptr(offset), row(offset), bf16, *(ptr(g) for g in cots),
-                *(ptr(o) for o in outs), *cam, N, camera.width, camera.height, sh_degree,
-                torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"project_bwd launch failed: CUDA error {err}")
-        launch_counts["project_bwd"] += 1
-    tracing.count("project_bwd", 1)
+        launch("project_bwd", dev, means3d.data_ptr(), row(means3d), shs.data_ptr(),
+               row(shs), shs.shape[1], scales.data_ptr(), row(scales),
+               rotations.data_ptr(), row(rotations), ptr(offset), row(offset), bf16,
+               *(ptr(g) for g in cots), *(ptr(o) for o in outs), *cam, N, camera.width,
+               camera.height, sh_degree)
     return tuple(outs)
 
 

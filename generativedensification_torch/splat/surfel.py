@@ -40,8 +40,8 @@ from ..core.transforms import normalize_quat
 from ..utils import tracing
 from .binning import bin_and_cap
 from .composite import _tile, _untile, mse_image_cotangent, slots_to_gaussians
-from .kernels import MAIN_KERNELS, build, launch_counts
-from .projection import ProjectedGaussians
+from .kernels import launch
+from .projection import ProjectedGaussians, _camera_args, _check_shapes
 from .surfel_kernels import (
     BX,
     CX,
@@ -374,42 +374,24 @@ def _surfel_setup_kernel(camera, sh_degree, means3d, scales2d, rotations,
     f32 = torch.float32
     dev = means3d.device
     N = means3d.shape[0]
-    if not 0 <= sh_degree <= 3:
-        raise ValueError(f"the surfel set-up kernel takes SH degree 0-3, got {sh_degree}")
+    what = "the surfel set-up kernel"
     f = lambda t: t.detach().to(f32).contiguous()
     means3d, rotations, opacities, shs = f(means3d), f(rotations), f(opacities), f(shs)
     scales2d = scales2d.detach().to(f32)
     if scales2d.dim() != 2 or scales2d.stride(-1) != 1:
         scales2d = scales2d.contiguous()
-    for name, t, shape in (("means3d", means3d, (N, 3)), ("scales2d", scales2d, (N, 2)),
-                           ("rotations", rotations, (N, 4)), ("opacities", opacities, (N,))):
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-    if shs.dim() != 3 or shs.shape[0] != N or shs.shape[2] != 3 \
-            or shs.shape[1] < (sh_degree + 1) ** 2:
-        raise ValueError(f"shs must be ({N}, >= {(sh_degree + 1) ** 2}, 3), got "
-                         f"{tuple(shs.shape)}")
-    wvt, center, tanx, tany = _surfel_camera(camera)
-    if any(t.device != dev or t.dtype != f32 for t in (wvt, center, tanx, tany)):
-        raise ValueError("the camera's tensors must be float32 on the surfels' device")
-    if wvt.shape != (4, 4) or center.shape != (3,) or tanx.dim() or tany.dim():
-        raise ValueError("the surfel set-up kernel takes one camera (no batch dims)")
+    _check_shapes(N, sh_degree, shs, (
+        ("means3d", means3d, (N, 3)), ("scales2d", scales2d, (N, 2)),
+        ("rotations", rotations, (N, 4)), ("opacities", opacities, (N,))), what)
+    cam = _camera_args(_surfel_camera(camera), dev, what, "surfels")
     e = lambda shape, dtype=f32: torch.empty(shape, dtype=dtype, device=dev)
     outs = (e((N, 3)), e((N, 3)), e((N, 3)), e(N), e((N, 2)), e(N), e((N, 3)),
             e((N, 3)), e(N), e(N), e(N, torch.bool), e((N, 3)))
     if N:
-        lib = build(MAIN_KERNELS)["prepass"].lib
-        with torch.cuda.device(dev):
-            err = lib.gd_surfel_setup(
-                means3d.data_ptr(), scales2d.data_ptr(), scales2d.stride(0),
-                rotations.data_ptr(), opacities.data_ptr(), shs.data_ptr(), shs.stride(0),
-                wvt.data_ptr(), *wvt.stride(), center.data_ptr(), center.stride(0),
-                tanx.data_ptr(), tany.data_ptr(), N, camera.width, camera.height,
-                sh_degree, MARGIN, *(o.data_ptr() for o in outs),
-                torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"surfel_setup launch failed: CUDA error {err}")
-        launch_counts["surfel_setup"] += 1
+        launch("surfel_setup", dev, means3d.data_ptr(), scales2d.data_ptr(),
+               scales2d.stride(0), rotations.data_ptr(), opacities.data_ptr(),
+               shs.data_ptr(), shs.stride(0), *cam, N, camera.width, camera.height,
+               sh_degree, MARGIN, *(o.data_ptr() for o in outs))
     return outs
 
 

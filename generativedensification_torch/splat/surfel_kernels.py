@@ -4,12 +4,11 @@ PyTorch versions.
 Replaces ``generativedensification_tpu/splat/pallas_surfel.py``'s
 ``pallas_surfel_fwd`` (``csrc/surfel_fwd.cu``) and ``pallas_surfel_bwd``
 (``csrc/surfel_bwd.cu``).  Both sources are registered in
-``kernels._libraries``: ``kernels.build()`` compiles them with the 3DGS
-kernels at first use, and their launches count in ``kernels.launch_counts``.
+``kernels._libraries``: ``kernels.launch`` builds them with the 3DGS
+kernels at first use and counts their launches in ``kernels.launch_counts``.
 
 ``surfel_fwd`` and ``surfel_bwd`` are the entries: tensors on the card launch
-the kernel (or raise), tensors on the CPU take the plain version.  Nothing
-else chooses.
+the kernel (or raise), tensors on the CPU take the plain version.
 
 Semantics: those of the JAX ``_xla_scan_fwd`` (global pixel coordinates,
 cr = a + X·b + Y·c, the |cr_z| < 1e-8 guard, the circular cut d² <= rad²)
@@ -43,16 +42,7 @@ from __future__ import annotations
 import torch
 
 from . import kernels
-from .kernels import (
-    CHUNK,
-    SUBTILE,
-    T_EPS,
-    _segment_slots,
-    _subtile_of_pixel,
-    _touch_mask,
-    build,
-    launch_counts,
-)
+from .kernels import CHUNK, SUBTILE, T_EPS, _segment_slots, _subtile_of_pixel, _touch_mask
 
 ALPHA_MAX = 0.99
 ALPHA_MIN = 1.0 / 255.0
@@ -90,33 +80,21 @@ def _check_inputs(table, sorted_ids, tile_starts, tile_counts, planes,
                           TABLE_W)
 
 
-def _launch(name, *args):
-    err = getattr(build(kernels.MAIN_KERNELS)[name].lib, f"gd_{name}")(*args)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    launch_counts[name] += 1
-
-
 def surfel_fwd(table, sorted_ids, tile_starts, tile_counts, planes,
                tiles_x: int, tiles_y: int, tile_size: int) -> torch.Tensor:
     """Composite every tile; (T, 13, ts²) rows ``FWD_ROWS``."""
     num_tiles = tiles_x * tiles_y
     _check_inputs(table, sorted_ids, tile_starts, tile_counts, planes, num_tiles)
-    dev = table.device
-    if dev.type == "cpu":
+    if table.device.type == "cpu":
         return surfel_fwd_plain(table, sorted_ids, tile_starts, tile_counts,
                                 planes, tiles_x, tiles_y, tile_size)
-    if dev.type != "cuda":
-        raise ValueError(f"surfel_fwd: unsupported device {dev}")
-    kernels._check_cuda(tile_size, table, sorted_ids, tile_starts, tile_counts,
-                        planes)
+    dev = kernels._check_cuda("surfel_fwd", tile_size, table, sorted_ids, tile_starts,
+                              tile_counts, planes)
     out = torch.empty((num_tiles, len(FWD_ROWS), tile_size * tile_size),
                       dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        _launch("surfel_fwd", table.data_ptr(), sorted_ids.data_ptr(),
-                tile_starts.data_ptr(), tile_counts.data_ptr(), planes.data_ptr(),
-                out.data_ptr(), num_tiles, tiles_x, tile_size,
-                torch.cuda.current_stream(dev).cuda_stream)
+    kernels.launch("surfel_fwd", dev, table.data_ptr(), sorted_ids.data_ptr(),
+                   tile_starts.data_ptr(), tile_counts.data_ptr(), planes.data_ptr(),
+                   out.data_ptr(), num_tiles, tiles_x, tile_size)
     return out
 
 
@@ -333,23 +311,18 @@ def surfel_bwd(table, sorted_ids, tile_starts, tile_counts, planes, cot8, aux5,
     num_tiles = tiles_x * tiles_y
     _check_inputs(table, sorted_ids, tile_starts, tile_counts, planes, num_tiles)
     _check_bwd(cot8, aux5, num_tiles, tile_size, mode)
-    dev = table.device
-    if dev.type == "cpu":
+    if table.device.type == "cpu":
         return surfel_bwd_plain(table, sorted_ids, tile_starts, tile_counts,
                                 planes, cot8, aux5, tiles_x, tiles_y, tile_size,
                                 mode)
-    if dev.type != "cuda":
-        raise ValueError(f"surfel_bwd: unsupported device {dev}")
-    kernels._check_cuda(tile_size, table, sorted_ids, tile_starts, tile_counts,
-                        planes, cot8, aux5)
+    dev = kernels._check_cuda("surfel_bwd", tile_size, table, sorted_ids, tile_starts,
+                              tile_counts, planes, cot8, aux5)
     out = torch.zeros((sorted_ids.shape[0], SURFEL_BWD_ROWS[mode]),
                       dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        _launch("surfel_bwd", table.data_ptr(), sorted_ids.data_ptr(),
-                tile_starts.data_ptr(), tile_counts.data_ptr(), planes.data_ptr(),
-                cot8.data_ptr(), aux5.data_ptr(), out.data_ptr(), num_tiles,
-                tiles_x, tile_size, _BWD_MODE_ID[mode],
-                torch.cuda.current_stream(dev).cuda_stream)
+    kernels.launch("surfel_bwd", dev, table.data_ptr(), sorted_ids.data_ptr(),
+                   tile_starts.data_ptr(), tile_counts.data_ptr(), planes.data_ptr(),
+                   cot8.data_ptr(), aux5.data_ptr(), out.data_ptr(), num_tiles, tiles_x,
+                   tile_size, _BWD_MODE_ID[mode])
     return out
 
 

@@ -75,6 +75,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import torch
 
@@ -284,6 +285,18 @@ def _parent_kernel(csrc: Path, name: str, defines: tuple = ()):
     return fn
 
 
+def _as_built(name: str, fn, call):
+    """``call()`` with the launches of ``name`` (a one-kernel source) running
+    ``fn``, another build of ``gd_<name>`` (``_parent_kernel``), through
+    ``kernels.launch`` in place of the current build."""
+    lib = kernels._libraries[name]
+    current, lib.lib = lib.lib, SimpleNamespace(**{f"gd_{name}": fn})
+    try:
+        return call()
+    finally:
+        lib.lib = current
+
+
 def _turns(fns: dict, reps: int, before=None) -> dict:
     """Median device ms of each of ``fns`` (label -> callable), timed in
     turns: in order, then in reverse; per label the mean of its two runs."""
@@ -417,29 +430,6 @@ def slot_edge_cases(dev) -> dict:
     return recs
 
 
-def _raw_slot_kernel(fn, name: str):
-    """A call of a ``gd_reduce_slots`` / ``gd_transpose_rows`` built
-    elsewhere (``_parent_kernel``) with the current wrapper's output."""
-    stream = lambda: torch.cuda.current_stream().cuda_stream
-
-    def check(err):
-        if err:
-            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-
-    def reduce(rows, n, d):
-        out = torch.empty((n, rows.shape[1]), device=rows.device)
-        check(fn(rows.data_ptr(), out.data_ptr(), n, d, rows.shape[1], stream()))
-        return out
-
-    def transpose(cols):
-        out = torch.empty((cols.shape[1], cols.shape[0]), device=cols.device)
-        check(fn(cols.data_ptr(), out.data_ptr(), cols.shape[0], cols.shape[1],
-                 stream()))
-        return out
-
-    return reduce if name == "reduce_slots" else transpose
-
-
 def _host_us(fns: dict, calls: int = 200, rounds: int = 5) -> dict:
     """Host microseconds per call of each of ``fns`` (label -> callable
     that enqueues device work): ``calls`` calls back to back without
@@ -466,8 +456,8 @@ def slot_kernels_versus(csrc: Path | None, dev, reps: int = REPS) -> dict:
     with a cold L2 (``timing.cold_l2``), beside the bound and two
     yardsticks of what no kernel can beat under this protocol: ``floor``, a
     one-float ``fill_`` (launch and timing overhead), and for #6 ``copy``, a
-    contiguous device copy of the same bytes; the host time of one call of
-    each side's C entry point (``_host_us``: the ctypes call alone, into a
+    contiguous device copy of the same bytes; the host time of one launch of
+    each side's entry point (``_host_us``: ``kernels.launch`` alone, into a
     preallocated output); then per renderer the launch-weighted device ms per micro-step
     of each side."""
     before = timing.cold_l2(dev)
@@ -477,7 +467,6 @@ def slot_kernels_versus(csrc: Path | None, dev, reps: int = REPS) -> dict:
         entry[name] = {"current": getattr(libs[name].lib, f"gd_{name}")}
         if csrc is not None:
             entry[name]["parent"] = _parent_kernel(csrc, name)
-    stream = torch.cuda.current_stream().cuda_stream
     recs, per_step = {}, {}
     for renderer, shapes in SLOT_SHAPES.items():
         for n, d, w, count in shapes:
@@ -487,25 +476,26 @@ def slot_kernels_versus(csrc: Path | None, dev, reps: int = REPS) -> dict:
             host_out = torch.empty(n * w, device=dev)
             for name, args, c_args, plain, library, n_bytes, ops in (
                     ("reduce_slots", (rows, n, d),
-                     (rows.data_ptr(), host_out.data_ptr(), n, d, w, stream),
+                     (rows.data_ptr(), host_out.data_ptr(), n, d, w),
                      kernels.reduce_slots_plain, lambda: rows.view(n, d, w).sum(1),
                      (n * d * w + n * w) * 4, n * (d - 1) * w),
                     ("transpose_rows", (cols,),
-                     (cols.data_ptr(), host_out.data_ptr(), w, n, stream),
+                     (cols.data_ptr(), host_out.data_ptr(), w, n),
                      kernels.transpose_rows_plain, lambda: cols.t().contiguous(),
                      2 * w * n * 4, 0)):
                 ref = plain(*args)
-                fns = {"current": lambda a=args, f=getattr(kernels, name): f(*a)}
-                fns.update({k: lambda a=args, f=_raw_slot_kernel(f, name): f(*a)
-                            for k, f in entry[name].items() if k != "current"})
+                wrapper = getattr(kernels, name)
+                fns = {k: lambda a=args, f=f: _as_built(name, f, lambda: wrapper(*a))
+                       for k, f in entry[name].items()}
                 for k, fn in fns.items():
                     out = fn()
                     torch.cuda.synchronize()
                     if not same_bits(out, ref):
                         raise SystemExit(f"{name} ({k}) at n={n} d={d} w={w} differs "
                                          "from its plain version")
-                host = _host_us({k: lambda f=f: f(*c_args)
-                                 for k, f in entry[name].items()})
+                host = _host_us({k: lambda f=f: _as_built(
+                    name, f, lambda: kernels.launch(name, rows.device, *c_args))
+                    for k, f in entry[name].items()})
                 fns["library"] = library
                 fns["floor"] = lambda: one.fill_(0.0)
                 if name == "transpose_rows":
@@ -537,26 +527,14 @@ def versus_parent(args, csrc: Path, reps: int = REPS) -> dict:
     """Kernels #1 and #2 (each mode) of the parent's ``csrc`` against the
     current ones on one scene: outputs held to the current plain versions,
     times in turns."""
-    table, ids, starts, counts, tiles_x, tiles_y, ts = args
-    num_tiles, npix = tiles_x * tiles_y, ts * ts
+    table, tiles_x, tiles_y, ts = args[0], *args[4:]
     fwd = _parent_kernel(csrc, "composite_fwd")
     bwd = _parent_kernel(csrc, "composite_bwd")
-    stream = lambda: torch.cuda.current_stream().cuda_stream
-    ptrs = (table.data_ptr(), ids.data_ptr(), starts.data_ptr(), counts.data_ptr())
-
-    def parent_fwd():
-        out = torch.empty((num_tiles, kernels.OUT_ROWS, npix), device=table.device)
-        if fwd(*ptrs, out.data_ptr(), num_tiles, tiles_x, ts, stream()):
-            raise RuntimeError("parent composite_fwd launch failed")
-        return out
-
-    def parent_bwd(gc4, g2, mode):
-        out = torch.zeros((ids.shape[0], kernels.BWD_ROWS[mode]), device=table.device)
-        if bwd(*ptrs, gc4.data_ptr(), g2.data_ptr(), out.data_ptr(), num_tiles,
-               tiles_x, ts, kernels._BWD_MODE_ID[mode], stream()):
-            raise RuntimeError("parent composite_bwd launch failed")
-        return out
-
+    parent_fwd = lambda: _as_built("composite_fwd", fwd,
+                                   lambda: kernels.composite_fwd(*args))
+    parent_bwd = lambda gc4, g2, mode: _as_built(
+        "composite_bwd", bwd,
+        lambda: kernels.composite_bwd(*args[:4], gc4, g2, *args[4:], mode=mode))
     ref = kernels.composite_fwd_plain(*args)
     current_fwd = lambda: kernels.composite_fwd(*args)
     for name, fn in (("parent", parent_fwd), ("current", current_fwd)):
@@ -614,10 +592,6 @@ def e2e_versus_parent(csrc: Path, dev, reps: int = 7,
     current, current, parent), ``reps`` calls per turn after one warm-up:
     host clock around each call and a synchronize; per side the median and
     quartiles of its 2 x ``reps`` calls."""
-    import statistics
-    import time
-    from types import SimpleNamespace
-
     from ..config import load_config
     from ..data.synthetic import make_probe_batch
     from ..models.network import Network, NetworkConfig

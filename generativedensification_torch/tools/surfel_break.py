@@ -68,6 +68,7 @@ from ..splat.composite import mse_image_cotangent
 from ..utils.device import resolve_device
 from . import scenes, timing
 from .kernel_break import (
+    _as_built,
     _header,
     _in_turns,
     _parent_kernel,
@@ -194,7 +195,8 @@ def bwd_breakdown(args, si, reps: int, full_batches=()) -> dict:
         for nb in full_batches:
             fn = _parent_kernel(kernels._CSRC, "surfel_bwd",
                                 (f"SURFEL_BWD_FULL_BATCH={nb}",))
-            variant = lambda fn=fn: _launch_bwd(fn, bargs, "full")
+            variant = lambda fn=fn: _as_built(
+                "surfel_bwd", fn, lambda: surfel_kernels.surfel_bwd(*bargs, mode="full"))
             err = _check_bwd(variant, plain, f"surfel_bwd full batch {nb}")
             rec = _in_turns(variant, current, reps)
             rec["max_scaled_err"] = err
@@ -204,38 +206,14 @@ def bwd_breakdown(args, si, reps: int, full_batches=()) -> dict:
     return recs
 
 
-def _launch_fwd(fn, args):
-    """(T, 13, ts²) from ``fn``, a ``gd_surfel_fwd`` built elsewhere."""
-    table, ids, starts, counts, planes, tiles_x, tiles_y, ts = args
-    out = torch.empty((tiles_x * tiles_y, len(surfel_kernels.FWD_ROWS), ts * ts),
-                      device=table.device)
-    if fn(table.data_ptr(), ids.data_ptr(), starts.data_ptr(), counts.data_ptr(),
-          planes.data_ptr(), out.data_ptr(), tiles_x * tiles_y, tiles_x, ts,
-          torch.cuda.current_stream().cuda_stream):
-        raise RuntimeError("surfel_fwd launch failed")
-    return out
-
-
-def _launch_bwd(fn, bargs, mode):
-    """(P, rows) from ``fn``, a ``gd_surfel_bwd`` built elsewhere."""
-    table, ids, starts, counts, planes, cot8, aux5, tiles_x, tiles_y, ts = bargs
-    out = torch.zeros((ids.shape[0], surfel_kernels.SURFEL_BWD_ROWS[mode]),
-                      device=table.device)
-    if fn(table.data_ptr(), ids.data_ptr(), starts.data_ptr(), counts.data_ptr(),
-          planes.data_ptr(), cot8.data_ptr(), aux5.data_ptr(), out.data_ptr(),
-          tiles_x * tiles_y, tiles_x, ts, surfel_kernels._BWD_MODE_ID[mode],
-          torch.cuda.current_stream().cuda_stream):
-        raise RuntimeError(f"surfel_bwd {mode} launch failed")
-    return out
-
-
 def versus_parent(args, si, csrc: Path, reps: int, bwd: bool) -> dict:
     """Kernel #3 (and with ``bwd`` #4 in each mode) of the parent's
     ``csrc`` against the current ones on one scene: outputs held to the
     current plain versions, times in turns."""
     fwd = _parent_kernel(csrc, "surfel_fwd")
     ref = surfel_kernels.surfel_fwd_plain(*args)
-    parent_fwd = lambda: _launch_fwd(fwd, args)
+    parent_fwd = lambda: _as_built("surfel_fwd", fwd,
+                                   lambda: surfel_kernels.surfel_fwd(*args))
     current_fwd = lambda: surfel_kernels.surfel_fwd(*args)
     for name, fn in (("parent", parent_fwd), ("current", current_fwd)):
         out = fn()
@@ -249,7 +227,8 @@ def versus_parent(args, si, csrc: Path, reps: int, bwd: bool) -> dict:
     for mode in modes:
         bargs = (*args[:5], *rows[mode], *args[5:])
         plain = surfel_kernels.surfel_bwd_plain(*bargs, mode=mode)
-        parent = lambda m=mode, b=bargs: _launch_bwd(bwd_fn, b, m)
+        parent = lambda m=mode, b=bargs: _as_built(
+            "surfel_bwd", bwd_fn, lambda: surfel_kernels.surfel_bwd(*b, mode=m))
         current = lambda m=mode, b=bargs: surfel_kernels.surfel_bwd(*b, mode=m)
         errs = {name: _check_bwd(fn, plain, f"surfel_bwd {mode} ({name})")
                 for name, fn in (("parent", parent), ("current", current))}

@@ -17,23 +17,19 @@ The forward and the renderers open named spans at their layer boundaries
     pairs_dropped  the pairs the budgets dropped: the binning overflow plus
                    the per-tile cap's, the tensor a render returns as
                    ``overflow``
-    prepass_kernel_views  views whose pre-pass (projection and binning, or
-                   the 2DGS binning) ran as the ``csrc/prepass.cu`` kernels
-    project_recompute  backwards of ``ProjectFunction`` that recomputed the
-                   plain projection (CPU tensors)
-    project_bwd    backwards of ``ProjectFunction`` that ran the
-                   ``project_bwd`` kernel (card tensors): a trace of a
-                   training step on the card counts one a recorded 3DGS
-                   render and no ``project_recompute``
+
+(The launches of each kernel are ``splat.kernels.launch_counts``.)
 
 Tracing is off unless a ``torch.profiler`` is recording (the benchmark's
 traced window, or the ``tpu.profile_dir`` trace of the train CLI, which then
 shows the ``gd.*`` ranges beside the ``aten::`` ops) or ``enable()`` was
 called.  Off, a span reads one flag and returns a shared no-op context: no
 profiler range, no CUDA event, no allocation.  On, a span opens a
-``record_function`` range of its name, stamps its host start and end with
-``time.time_ns()`` (the clock of the profiler's event timestamps), and, when
-CUDA is in use, records a CUDA event on the current stream at each end.
+``record_function`` range of its name, stamps its host start just before the
+range opens and its end just after it closes with ``time.time_ns()`` (the
+clock of the profiler's event timestamps), so that both clocks hold the
+range's own work, and, when CUDA is in use, records a CUDA event on the
+current stream at each end.
 A counter keeps a reference to the tensor it is given: no host sync; a
 Python number is added as it is.
 
@@ -136,8 +132,8 @@ class _Span:
         else:
             self.request = None
         self._rf = record_function(self.name)
-        self._rf.__enter__()
         self.t0 = time.time_ns()
+        self._rf.__enter__()
         self.e0 = _event() if self.request is not None else None
         stack.append(self)
         return self
@@ -146,11 +142,12 @@ class _Span:
         _stack().pop()
         if self.request is not None:
             self.e1 = _event()
-            self.t1 = time.time_ns()
+        self._rf.__exit__(*exc)
+        self.t1 = time.time_ns()
+        if self.request is not None:
             self.request.spans.append(self)
             if self.parent is None:
                 self.request.done = True
-        self._rf.__exit__(*exc)
         return False
 
 

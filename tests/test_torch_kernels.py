@@ -465,6 +465,22 @@ def test_reduce_and_transpose_plain_versions():
         kernels.transpose_rows(cols[0])
 
 
+def test_launch_counts_every_entry_and_refuses_other_devices(monkeypatch):
+    """``launch_counts`` has exactly the entry points that ``_libraries``
+    registers; ``launch`` on a device that is not CUDA, and a wrapper on
+    such tensors, raise before anything is built, and count nothing."""
+    entries = [e for lib in kernels._libraries.values() for e in lib.entries]
+    assert sorted(kernels.launch_counts) == sorted(set(entries)) == sorted(entries)
+    monkeypatch.setattr(kernels, "build", lambda *a, **k: pytest.fail("built"))
+    before = dict(kernels.launch_counts)
+    for entry in entries:
+        with pytest.raises(ValueError, match="unsupported device cpu"):
+            kernels.launch(entry, torch.device("cpu"))
+    with pytest.raises(ValueError, match="reduce_slots: unsupported device meta"):
+        kernels.reduce_slots(torch.zeros((6, 2), device="meta"), 3, 2)
+    assert kernels.launch_counts == before
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", list(kernel_break.REDUCE_CASES))
 def test_cuda_reduce_slots_matches_plain(cuda_device, case):

@@ -92,28 +92,26 @@ def _function_grads(cam, deg, leaves, weights):
     (3, True, ("color", "opacity_eff", "depth")),
 ])
 def test_project_function_recompute_matches_autograd(deg, offset, used):
-    """On the CPU the plain chain stands in for the kernel: the recompute
-    backward gives autograd's gradients bit for bit, with unused outputs
-    and inputs that take no gradient, and counts one ``project_recompute``
-    outside any request."""
+    """On the CPU the plain chain stands in for the kernel: the backward
+    launches nothing and is ``project_vjp_recompute``, which gives
+    autograd's gradients bit for bit, with unused outputs and inputs that
+    take no gradient."""
     scene = prepass_scene("cpu", 300, height=48, width=64, seed=deg, sh_degree=deg)
     cam, leaves = _leaves(scene, offset)
     leaves[1].requires_grad_(deg != 2)          # shs: no gradient asked
     weights = _weights(scene, used, seed=deg)
     ref = _plain_grads(cam, deg, leaves, weights)
-    tracing.reset()
-    tracing.enable()
-    try:
-        got = _function_grads(cam, deg, leaves, weights)
-    finally:
-        tracing.disable()
-    assert tracing.summary()["outside"] == {"project_recompute": 1}
-    tracing.reset()
-    assert len(got) == len(ref)
-    for g, r in zip(got, ref):
-        assert (g is None) == (r is None)
+    kernels.reset_launch_counts()
+    got = _function_grads(cam, deg, leaves, weights)
+    assert not any(kernels.launch_counts.values())
+    need = [t is not None and t.requires_grad for t in leaves]
+    recomputed = [g for g, n in zip(project_vjp_recompute(cam, deg, leaves, weights, need),
+                                    need) if n]
+    assert len(got) == len(ref) == len(recomputed)
+    for g, r, c in zip(got, ref, recomputed):
+        assert (g is None) == (r is None) == (c is None)
         if r is not None:
-            assert torch.equal(g, r)
+            assert torch.equal(g, r) and torch.equal(g, c)
 
 
 def test_cpu_entries_take_the_plain_chains():

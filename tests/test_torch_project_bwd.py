@@ -38,7 +38,6 @@ from generativedensification_torch.splat.projection import (
     project_vjp_recompute,
 )
 from generativedensification_torch.tools.scenes import prepass_scene
-from generativedensification_torch.utils import tracing
 
 torch.set_num_threads(1)
 
@@ -254,8 +253,8 @@ def test_kernel_wrapper_raises_before_building(case, monkeypatch):
 
 
 def test_cpu_backward_takes_the_recompute():
-    """Through ``ProjectFunction`` CPU tensors take the recompute: it counts
-    one ``project_recompute`` and no ``project_bwd``, launches nothing, and
+    """Through ``ProjectFunction`` CPU tensors take the recompute: the
+    backward launches nothing, is ``project_vjp_recompute`` bit for bit and
     gives autograd's gradients bit for bit."""
     means, shs, opa, scales, quats, cam = prepass_scene("cpu", 300, 48, 64, seed=4)
     leaves = [t.clone().requires_grad_(True) for t in (means, shs, opa, scales, quats)]
@@ -264,18 +263,12 @@ def test_cpu_backward_takes_the_recompute():
     ref = torch.autograd.grad([proj.xy, proj.depth, proj.conic, proj.color, opa_eff],
                               leaves, cots)
     kernels.reset_launch_counts()
-    tracing.reset()
-    tracing.enable()
-    try:
-        outs = ProjectFunction.apply(cam, 1, *leaves, None)
-        got = torch.autograd.grad(list(outs[:5]), leaves, cots)
-    finally:
-        tracing.disable()
-    assert tracing.summary()["outside"] == {"project_recompute": 1}
-    tracing.reset()
+    outs = ProjectFunction.apply(cam, 1, *leaves, None)
+    got = torch.autograd.grad(list(outs[:5]), leaves, cots)
     assert not any(kernels.launch_counts.values())
-    for g, r in zip(got, ref):
-        assert torch.equal(g, r)
+    recomputed = project_vjp_recompute(cam, 1, leaves + [None], cots, (True,) * 5 + (False,))
+    for g, r, c in zip(got, ref, recomputed):
+        assert torch.equal(g, r) and torch.equal(g, c)
 
 
 # ------------------------------------------------------------------ card
@@ -402,7 +395,7 @@ def test_micro_step_backward_adds_no_host_sync(cuda_device):
     """A training micro-step of the tiny network (3DGS, every render
     recorded): after a warm-up step, the backward of its images' MSE under
     ``set_sync_debug_mode("error")``, with one ``project_bwd`` per
-    recorded render and no recompute.  (The train loss's MS-SSIM is left
+    recorded render.  (The train loss's MS-SSIM is left
     out: ``torch.prod``'s backward synchronises, outside the renders.)"""
     from generativedensification_torch.models.network import (
         Network,
@@ -422,18 +415,13 @@ def test_micro_step_backward_adds_no_host_sync(cuda_device):
         loss = sum(((out[k] - tar) ** 2).mean() for k in ("image", "image_fine"))
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
-        tracing.reset()
-        tracing.enable()
         torch.cuda.set_sync_debug_mode(sync_mode)
         try:
             loss.backward()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-            tracing.disable()
         torch.cuda.synchronize()
         assert kernels.launch_counts["project_bwd"] == renders
-        assert "project_recompute" not in tracing.summary()["outside"]
-        tracing.reset()
         net.zero_grad(set_to_none=True)
 
 
