@@ -19,8 +19,10 @@ def rigid_inverse(mat: torch.Tensor) -> torch.Tensor:
     t = mat[..., :3, 3]
     Rt = R.transpose(-1, -2)
     top = torch.cat([Rt, -(Rt @ t[..., None])], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=mat.dtype, device=mat.device)
-    bottom = bottom.expand(*mat.shape[:-2], 1, 4)
+    # [0 0 0 1] filled on the device: a tensor from host data would copy from
+    # pageable memory and wait for the stream
+    bottom = mat.new_zeros((*mat.shape[:-2], 1, 4))
+    bottom[..., 3].fill_(1.0)
     return torch.cat([top, bottom], dim=-2)
 
 

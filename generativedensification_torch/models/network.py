@@ -580,8 +580,7 @@ class Network(nn.Module):
         w2cs = batch["tar_w2c"][:, :V].reshape(B * V, 4, 4)
         ixts = batch["tar_ixt"][:, :V].reshape(B * V, 3, 3)
         xy, _ = project_points(self.volume_grid, w2cs, ixts)  # (B·V, R³, 2)
-        img_wh = torch.tensor([W, H], dtype=torch.float32, device=xy.device)
-        xy_norm = (xy + 0.5) / img_wh * 2.0 - 1.0
+        xy_norm = pixel_to_unit(xy, W, H)
         feat_vol = bilinear_sample(feat_hw, xy_norm).reshape(B, V, R, R, R, -1)
         if self.view_embed is not None:
             ve = self.view_embed[:, :V].reshape(1, V, 1, 1, 1, cfg.view_embed_dim)
@@ -727,12 +726,22 @@ class Network(nn.Module):
         render RGB (3), acc (1), |render_depth - point_z| (1)] -> (M, V, 8)."""
         H, W = imgs.shape[1:3]
         xy, z = project_points(points, w2cs, ixts)     # (V, M, 2), (V, M, 1)
-        img_wh = torch.tensor([W, H], dtype=torch.float32, device=xy.device)
-        xy_norm = (xy + 0.5) / img_wh * 2.0 - 1.0
+        xy_norm = pixel_to_unit(xy, W, H)
         stacked = torch.cat([src, imgs, accs[..., None], depths[..., None]], dim=-1)
         sampled = bilinear_sample(stacked, xy_norm)    # (V, M, 8)
         z_diff = (sampled[..., 7:8] - z).abs()
         return torch.cat([sampled[..., :7], z_diff], dim=-1).permute(1, 0, 2)
+
+
+def pixel_to_unit(xy: torch.Tensor, W: int, H: int) -> torch.Tensor:
+    """Pixel coordinates (..., 2) -> ``bilinear_sample``'s [-1, 1] grid:
+    ``(xy + 0.5) / [W, H] * 2 - 1``.  [W, H] is filled on ``xy``'s device: a
+    tensor from host data would copy from pageable memory and wait for the
+    stream, and a Python divisor would multiply by its reciprocal on the
+    card (other bits)."""
+    wh = xy.new_full((2,), W, dtype=torch.float32)
+    wh[1:].fill_(H)
+    return (xy + 0.5) / wh * 2.0 - 1.0
 
 
 def static_opacity_pool(opacity_act: torch.Tensor, mask_pool: int) -> torch.Tensor:

@@ -20,7 +20,9 @@ def encode(grid_coord: torch.Tensor, depth: int = 16, order: str = "z") -> torch
         raise ValueError(f"depth must be <= 16, got {depth}")
     gc = grid_coord
     if order.endswith("-trans"):
-        gc = gc[..., [1, 0, 2]]
+        # column views, not a list index: that copies an index tensor from
+        # the host and waits for the stream
+        gc = torch.stack([gc[..., 1], gc[..., 0], gc[..., 2]], dim=-1)
     if order.startswith("z"):
         return z_encode(gc, depth=depth)
     return hilbert_encode(gc, num_bits=depth)

@@ -402,12 +402,17 @@ def transpose_case(label: str, dev, seed: int = 0):
 
 def same_bits(a, b) -> bool:
     """NaN at the same places and every other element bit for bit (the sign
-    of a zero included)."""
-    nan_a, nan_b = torch.isnan(a), torch.isnan(b)
-    if a.shape != b.shape or not torch.equal(nan_a, nan_b):
+    of a zero included); integer tensors element for element."""
+    if a.dtype != b.dtype or a.shape != b.shape:
         return False
-    return torch.equal(a.masked_fill(nan_a, 0).view(torch.int32),
-                       b.masked_fill(nan_b, 0).view(torch.int32))
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+    if not torch.equal(nan_a, nan_b):
+        return False
+    bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return torch.equal(a.masked_fill(nan_a, 0).view(bits),
+                       b.masked_fill(nan_b, 0).view(bits))
 
 
 def slot_edge_cases(dev) -> dict:
