@@ -26,6 +26,12 @@ the numbers, so it is written out:
 The schedule and the bias corrections are f32 scalars computed on the
 host and passed as Python floats (exactly their f32 values), so a step
 copies nothing to the device and never waits for it.
+
+Each stage of a step is one multi-tensor pass (``torch._foreach_*``) over
+the lists of every parameter, its gradient and its state: a few kernel
+launches per pass on the card, where a loop over the leaves launched a
+few kernels per leaf.  The state stays per parameter (``state[p]``, updated
+in place) and the parameters stay the module's own tensors.
 """
 
 from __future__ import annotations
@@ -47,6 +53,13 @@ def warmup_then_constant(base_lr: float, warmup_iters: int = 1000,
         return warm if count <= warmup_iters else torch.tensor(constant_lr, dtype=f32)
 
     return schedule
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """optax's ``global_norm``, the square root of the sum of every
+    element's square, as a 0-d tensor on the tensors' device: one norm per
+    tensor in a multi-tensor pass, then the norm of those."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
 
 
 class OptaxAdamW(torch.optim.Optimizer):
@@ -89,50 +102,69 @@ class OptaxAdamW(torch.optim.Optimizer):
         if closure is not None:
             raise ValueError("OptaxAdamW takes no closure")
         params = self._params()
-        grads = {p: torch.zeros_like(p) if p.grad is None else p.grad
-                 for p in params}
-        n = self.mini_step
-        for p, g in grads.items():
-            st = self.state[p]
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+        states = [self.state[p] for p in params]
+        for p, st in zip(params, states):
             if "acc" not in st:
                 st["acc"] = torch.zeros_like(p)
                 st["mu"] = torch.zeros_like(p)
                 st["nu"] = torch.zeros_like(p)
-            if self.accumulate > 1:
-                st["acc"] = st["acc"] + (g - st["acc"]) / (n + 1)
-            else:
+        n = self.mini_step
+        if self.accumulate > 1:
+            acc = [st["acc"] for st in states]
+            torch._foreach_add_(acc, torch._foreach_sub(grads, acc), alpha=1 / (n + 1))
+        else:
+            acc = grads
+            for st, g in zip(states, grads):
                 st["acc"] = g
         self.mini_step = (n + 1) % self.accumulate
         if self.mini_step:
             return None
 
-        acc = [self.state[p]["acc"] for p in params]
-        g_norm = torch.sqrt(sum(torch.sum(a * a) for a in acc))
+        g_norm = global_norm(acc)
         keep = g_norm < self.grad_clip
+        # (a / norm) * clip past the clip; kept, a / 1 * 1 is a, bit for bit
+        clipped = torch._foreach_div(acc, torch.where(keep, 1.0, g_norm))
+        torch._foreach_mul_(clipped, torch.where(keep, 1.0, self.grad_clip))
         count = self.count + 1
         lr = float(self.schedule(self.count))
         f32 = torch.float32
+        first = 0
         for group in self.param_groups:
             b1, b2 = group["betas"]
             eps, wd = group["eps"], group["weight_decay"]
             bc1 = float(1.0 - torch.tensor(b1, dtype=f32) ** count)
             bc2 = float(1.0 - torch.tensor(b2, dtype=f32) ** count)
-            for p in group["params"]:
-                st = self.state[p]
-                a = st["acc"]
-                g = torch.where(keep, a, (a / g_norm) * self.grad_clip)
-                st["mu"] = (1 - b1) * g + b1 * st["mu"]
-                st["nu"] = (1 - b2) * (g * g) + b2 * st["nu"]
-                u = (st["mu"] / bc1) / (torch.sqrt(st["nu"] / bc2) + eps)
-                if p.dim() >= 2:
-                    u = u + wd * p
-                u = -lr * u
-                if skip_zero_grad:
-                    u = torch.where(torch.any(grads[p] != 0), u,
-                                    torch.zeros_like(u))
-                p.add_(u)
-                if self.accumulate > 1:
-                    st["acc"] = torch.zeros_like(a)
+            last = first + len(group["params"])
+            ps, g = params[first:last], clipped[first:last]
+            mu = [st["mu"] for st in states[first:last]]
+            nu = [st["nu"] for st in states[first:last]]
+            first = last
+            torch._foreach_mul_(mu, b1)
+            torch._foreach_add_(mu, g, alpha=1 - b1)
+            torch._foreach_mul_(nu, b2)
+            torch._foreach_addcmul_(nu, g, g, value=1 - b2)
+            den = torch._foreach_div(nu, bc2)
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, eps)
+            u = torch._foreach_div(mu, bc1)
+            torch._foreach_div_(u, den)
+            del den
+            mats = [j for j, p in enumerate(ps) if p.dim() >= 2]
+            if mats:
+                torch._foreach_add_([u[j] for j in mats], [ps[j] for j in mats], alpha=wd)
+            if skip_zero_grad:
+                # where, not a product, so that a NaN u is dropped too; a
+                # leaf with no gradient is known on the host
+                live = [j for j, p in enumerate(ps) if p.grad is not None]
+                moves = (torch.stack(torch._foreach_norm([ps[j].grad for j in live], 1)) != 0
+                         if live else [])
+                u = [torch.where(nz, u[j], 0.0) for nz, j in zip(moves, live)]
+                ps = [ps[j] for j in live]
+            if ps:
+                torch._foreach_add_(ps, u, alpha=-lr)
+        if self.accumulate > 1:
+            torch._foreach_zero_(acc)
         self.count = count
         return None
 

@@ -25,6 +25,7 @@ import torch
 import torch.distributed as dist
 
 from .loss import Losses
+from .optim import global_norm
 from .state import TrainState
 
 
@@ -88,8 +89,7 @@ def make_train_step(net, optimizer, losses: Losses | None = None,
         if dp:
             _all_reduce_grads(params, group)
             dist.all_reduce(overflow, group=group)
-        grad_norm = torch.sqrt(sum(torch.sum(p.grad * p.grad)
-                                   for p in params if p.grad is not None))
+        grad_norm = global_norm([p.grad for p in params if p.grad is not None])
         # Coarse-only phase: the fine-stage parameters get no gradient and
         # no update (their moments still update, as the JAX step's do).
         optimizer.step(skip_zero_grad=not with_fine)

@@ -124,10 +124,57 @@ def test_losses_match_jax(hw, step, surfel):
 
 
 def _opt_params(seed):
+    """Three named leaves, 50 more of mixed shapes (every second one a
+    vector: only the tensors with ndim >= 2 decay) and ``none``, which never
+    gets a gradient."""
     rng = np.random.default_rng(seed)
-    return {"a": rng.normal(size=(5, 4)).astype(np.float32),      # decayed
-            "b": rng.normal(size=(4,)).astype(np.float32),        # not decayed
-            "c": rng.normal(size=(2, 3, 3)).astype(np.float32)}   # decayed
+    shapes = {"a": (5, 4),          # decayed
+              "b": (4,),            # not decayed
+              "c": (2, 3, 3),       # decayed
+              "none": (3, 2)}       # no gradient: decays, moments decay
+    for i in range(50):
+        shapes[f"l{i:02d}"] = [(i % 7 + 1,), (3, i % 5 + 1), (i % 3 + 1, 2, 2),
+                               (2 * i + 1,), (1, 1, 2, i % 4 + 1)][i % 5]
+    return {k: rng.normal(size=v).astype(np.float32) for k, v in shapes.items()}
+
+
+def _opt_grads(p0, n_micro, seed=1):
+    """Micro-step gradients of every leaf but ``none``: under and over the
+    0.5 clip in turn, ``b`` zero on every fourth."""
+    rng = np.random.default_rng(seed)
+    grads = []
+    for i in range(n_micro):
+        scale = 0.02 if i % 3 == 0 else 1.0          # under / over the 0.5 clip
+        g = {k: (scale * rng.normal(size=v.shape)).astype(np.float32)
+             for k, v in p0.items() if k != "none"}
+        if i % 4 == 1:
+            g["b"] = np.zeros_like(g["b"])
+        grads.append(g)
+    return grads
+
+
+def _optax_run(p0, accumulate, **kw):
+    """The optax chain of ``make_optimizer`` on ``p0``: ``step(g, skip)``
+    takes one micro-step's gradients (zeros for a leaf it lacks) and
+    returns the parameters; ``state()`` is optax's state."""
+    jparams = jax.tree.map(jnp.asarray, p0)
+    tx, _ = joptim.make_optimizer(jparams, accumulate=accumulate, **kw)
+    box = {"params": jparams, "state": tx.init(jparams)}
+
+    @jax.jit
+    def update(jg, state, params, skip):
+        upd, state = tx.update(jg, state, params)
+        upd = jax.tree.map(lambda u, gg: jnp.where(jnp.any(gg != 0) | ~skip, u, 0.0), upd, jg)
+        return optax.apply_updates(params, upd), state
+
+    def step(g, skip):
+        jg = {k: jnp.asarray(g[k]) if k in g else jnp.zeros_like(v)
+              for k, v in box["params"].items()}
+        box["params"], box["state"] = update(jg, box["state"], box["params"],
+                                             jnp.asarray(skip))
+        return box["params"]
+
+    return step, lambda: box["state"]
 
 
 @pytest.mark.parametrize("accumulate", [1, 2])
@@ -135,41 +182,78 @@ def test_optimizer_matches_optax(accumulate):
     """``OptaxAdamW`` against ``make_optimizer``'s optax chain on the same
     gradients for 6 updates (warmup of 3 updates, so both schedule branches
     run), with micro-steps whose global norm is above and below the clip,
-    and the coarse-only rule (``skip_zero_grad``) against the JAX step's
-    ``where(any(g != 0), u, 0)`` on a leaf whose gradient is sometimes
-    zero: parameters within 1e-6 relative after every micro-step."""
+    on 54 leaves of mixed shapes of which only the matrices decay, one of
+    them without a gradient (``.grad`` None against a zero gradient), and
+    the coarse-only rule (``skip_zero_grad``, on every second update)
+    against the JAX step's ``where(any(g != 0), u, 0)`` on a leaf whose
+    gradient is sometimes zero: parameters within 1e-6 relative after
+    every micro-step."""
     p0 = _opt_params(0)
-    rng = np.random.default_rng(1)
-    n_micro = 6 * accumulate
-    grads = []
-    for i in range(n_micro):
-        scale = 0.02 if i % 3 == 0 else 1.0          # under / over the 0.5 clip
-        g = {k: (scale * rng.normal(size=v.shape)).astype(np.float32)
-             for k, v in p0.items()}
-        if i % 4 == 1:
-            g["b"] = np.zeros_like(g["b"])
-        grads.append(g)
-
-    jparams = jax.tree.map(jnp.asarray, p0)
-    tx, _ = joptim.make_optimizer(jparams, warmup_iters=3, accumulate=accumulate)
-    jstate_ = tx.init(jparams)
+    grads = _opt_grads(p0, 6 * accumulate)
+    jstep, _ = _optax_run(p0, accumulate, warmup_iters=3)
     tparams = {k: torch.nn.Parameter(T(v)) for k, v in p0.items()}
     opt = make_optimizer(torch.nn.ParameterDict(tparams), warmup_iters=3,
                          accumulate=accumulate)
     moved = 0.0
-    for g in grads:
-        jg = jax.tree.map(jnp.asarray, g)
-        upd, jstate_ = tx.update(jg, jstate_, jparams)
-        upd = jax.tree.map(lambda u, gg: jnp.where(jnp.any(gg != 0), u, 0.0), upd, jg)
-        jparams = optax.apply_updates(jparams, upd)
+    for i, g in enumerate(grads):
+        skip = (i // accumulate) % 2 == 0
+        jparams = jstep(g, skip)
         for k, p in tparams.items():
-            p.grad = T(g[k])
-        opt.step(skip_zero_grad=True)
+            p.grad = T(g[k]) if k in g else None
+        opt.step(skip_zero_grad=skip)
         for k, p in tparams.items():
             np.testing.assert_allclose(p.detach().numpy(), np.asarray(jparams[k]),
                                        rtol=1e-6, atol=1e-9, err_msg=k)
         moved = max(moved, float(np.abs(np.asarray(jparams["a"]) - p0["a"]).max()))
     assert opt.count == 6 and moved > 1e-4
+    # the leaf without a gradient decayed on the updates that did not skip
+    assert float(np.abs(np.asarray(jparams["none"]) - p0["none"]).max()) > 0
+
+
+@pytest.mark.parametrize("accumulate", [1, 2])
+def test_optimizer_state_keyed_by_parameter(accumulate):
+    """After every micro-step ``opt.state[p]`` holds ``acc``, ``mu`` and
+    ``nu`` for each parameter, as optax's accumulated gradients and first
+    and second moments of that leaf (within 1e-6 of the largest value of
+    that state over every leaf: the clip's norm, summed in another order
+    than optax's, differs in its last bits, and where ``b1 · mu`` and
+    ``(1 − b1) · g`` cancel that shows as more than 1e-6 of the small
+    result); ``mu`` and
+    ``nu`` stay the same tensors across updates (updated in place), and
+    ``acc`` is the last gradient without accumulation."""
+    p0 = _opt_params(2)
+    grads = _opt_grads(p0, 4 * accumulate, seed=3)
+    jstep, jstate = _optax_run(p0, accumulate, warmup_iters=3)
+    tparams = {k: torch.nn.Parameter(T(v)) for k, v in p0.items()}
+    opt = make_optimizer(torch.nn.ParameterDict(tparams), warmup_iters=3,
+                         accumulate=accumulate)
+    held = {}
+    for g in grads:
+        jstep(g, False)
+        for k, p in tparams.items():
+            p.grad = T(g[k]) if k in g else None
+        opt.step()
+        st = jstate()
+        mu, nu = (optax.tree_utils.tree_get(st, name) for name in ("mu", "nu"))
+        trees = {"mu": mu, "nu": nu, "acc": getattr(st, "acc_grads", None)}
+        scale = {name: max(float(np.abs(np.asarray(v)).max()) for v in tree.values())
+                 for name, tree in trees.items() if tree is not None}
+        assert set(opt.state) == set(tparams.values())
+        for k, p in tparams.items():
+            mine = opt.state[p]
+            assert set(mine) == {"acc", "mu", "nu"}
+            if accumulate > 1:
+                theirs = np.asarray(st.acc_grads[k])
+                np.testing.assert_allclose(mine["acc"].numpy(), theirs, rtol=1e-6,
+                                           atol=1e-6 * scale["acc"], err_msg=k)
+            else:
+                assert mine["acc"] is p.grad or (p.grad is None and not mine["acc"].any())
+            for name, theirs in (("mu", mu[k]), ("nu", nu[k])):
+                theirs = np.asarray(theirs)
+                np.testing.assert_allclose(mine[name].numpy(), theirs, rtol=1e-6,
+                                           atol=1e-6 * scale[name], err_msg=f"{name} {k}")
+                assert held.setdefault((k, name), mine[name]) is mine[name]
+    assert opt.count == 4
 
 
 # --------------------------------------------------------------------------
